@@ -1,0 +1,77 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled at
+first use with ``nvcc`` for Hopper (``sm_90a``) into
+``dcfp_tpu_torch/_build/`` and loaded with ``ctypes``.  The library's file
+name carries a hash of the source and flags, so an edited source is
+rebuilt and a stale library is never loaded.  Nothing here runs at
+import time, and there is no fallback: a missing ``nvcc`` or a failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # nvcc wall time; 0.0 when a built library was reused
+    log: str        # nvcc/ptxas output (registers, spills)
+
+
+_LOADED: Dict[str, Built] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME); "
+                       "the port's CUDA kernels are built from source")
+
+
+def load(name: str) -> Built:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    if name in _LOADED:
+        return _LOADED[name]
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{name}_{digest}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:"
+                               f"\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, so)  # atomic: concurrent builders never see a stub
+    built = Built(ctypes.CDLL(str(so)), so, seconds, log)
+    _LOADED[name] = built
+    return built
