@@ -6,21 +6,29 @@ Needs one CUDA card (written for an H100, ``sm_90a``) and ``nvcc``; it
 exits non-zero without them.  Phases, each of which raises on failure:
 
 1. device: name, power limit, torch/CUDA versions;
-2. build: compile the resize-argmax kernel (K1) from
-   ``dcfp_tpu_torch/csrc/`` with nvcc;
-3. K1 against its plain PyTorch version on the card, over the deploy
-   shape and the JAX package's kernel test cases;
+2. build: compile every kernel of the port from ``dcfp_tpu_torch/csrc/``
+   with nvcc, one process per source, in parallel: resize-argmax (K1),
+   the stem conv (K2) and the fused bottleneck (K3);
+3. each kernel against its plain PyTorch version on the card: K1 over
+   the deploy shape and the JAX package's kernel test cases; K2 over
+   tests/test_stem.py's shapes, batch 2 and the deploy shape, and against
+   cuDNN's stem conv on the deploy image; K3 over tests/test_bottleneck.py's
+   cases, and, as its probe (tools/exp_bottleneck.py) does, at the pruned
+   DeepLabV3-R101's layer3 and layer4 shapes beside the cuDNN chain;
+   each kernel timed beside its bound, plain and library times;
 4. the DeepLabV3-R50 forward on the card (f32, TF32 off) against the
-   port's own CPU run on the same params;
+   port's own CPU run on the same params, from NHWC and from phase planes;
 5. serving: DeepLabV3-R101 (the bench configuration) pruned to 50% FLOPs,
-   BN folded, bf16, batch 1, 1025x2049, NCHW input, argmax output through
-   K1; answers 4 requests, checks K1 ran once per request, and times the
-   pruned and unpruned models with the ``totrt.py`` protocol;
-6. one JSON line with every ported kernel: launches on the serving run,
-   its check, its time beside its bound, plain and library times;
+   BN folded, bf16, batch 1, 1025x2049, argmax output through K1; answers
+   4 requests from NCHW images and the same 4 from their phase planes
+   (stem conv through K2), checks K1 (and K2) ran once per request, and
+   times both paths and the unpruned model with the ``totrt.py`` protocol;
+6. one JSON line with every ported kernel: launches on its path, its
+   check, its time beside its bound, plain and library times;
 7. last line: ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -35,8 +43,9 @@ from dcfp_tpu_torch.engine.deploy import (benchmark, make_inference_fn,
                                           make_split_inference_fn)
 from dcfp_tpu_torch.graph.apply import init_graph
 from dcfp_tpu_torch.models.registry import build_model
-from dcfp_tpu_torch.ops import kernels
+from dcfp_tpu_torch.ops import bottleneck, kernels
 from dcfp_tpu_torch.ops.resize import resize_bilinear
+from dcfp_tpu_torch.ops.stem import extract_stem_phases
 from dcfp_tpu_torch.prune.eic import prunable_bn_names
 from dcfp_tpu_torch.prune.search import prune_to_flops
 
@@ -44,6 +53,7 @@ from dcfp_tpu_torch.prune.search import prune_to_flops
 # tensor cores (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 MAIN_SHAPE = (1, 19, 129, 257)  # low-res logits of the deploy model
 MAIN_OUT = (1025, 2049)
@@ -97,12 +107,14 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    built = kernels.build()
-    log(f"[build] resize_argmax: nvcc {built.seconds:.2f} s, "
-        f"load {time.perf_counter() - t0:.2f} s")
-    for line in built.log.splitlines():  # ptxas: registers, spills
-        if "Used" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    built = kernels.build_all()
+    log(f"[build] {len(built)} libraries in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc runs in parallel)")
+    for name, b in built.items():
+        log(f"[build] {name}: nvcc {b.seconds:.2f} s")
+        for line in b.log.splitlines():  # ptxas: registers, spills
+            if "Used" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -214,31 +226,394 @@ def time_k1():
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+@contextlib.contextmanager
+def autotuned():
+    """cuDNN autotuning on, as the deploy path runs it: every bf16 cuDNN
+    call of the yardsticks goes through here (see :func:`_cudnn_chain`)."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
+def bound(n_bytes, n_ops, ops_per_s):
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate for their type, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def bf16_ulp_check(got, ref, tag):
+    """Every bf16 value of ``got`` within 1 bf16 ulp of the f32 ``ref``,
+    plus 1e-6 x max|ref| for values near 0 (there two f32 sums in
+    different orders differ by more than a bf16 ulp of the tiny result).
+    Returns max|got - ref|."""
+    g, ref = got.float(), ref.float()
+    mag = torch.maximum(g.abs(), ref.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (g - ref).abs()
+    bad = int((err > ulp + 1e-6 * float(ref.abs().max())).sum())
+    if bad:
+        raise AssertionError(f"{tag}: {bad} values more than 1 bf16 ulp off")
+    return float(err.max())
+
+
+def f32_rel_check(got, ref, tag, rel=1e-5):
+    """max|got - ref| <= rel x max|ref|; returns max|got - ref|."""
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    if err > rel * scale:
+        raise AssertionError(f"{tag}: max|diff| {err:.3g} > {rel:g} x "
+                             f"max|ref| {scale:.3g}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# 3b. K2 (stem conv from phase planes) against its plain version
+# ---------------------------------------------------------------------------
+
+# (N, H, W, cin, cout): tests/test_stem.py's shapes, batch 2, the deploy
+# shape (the pruned R101's stem conv, backbone.conv1.0: 3 -> 64)
+K2_CASES = [(1, 65, 129, 3, 64), (1, 64, 64, 3, 16), (1, 33, 47, 4, 8),
+            (2, 65, 129, 3, 64), (1,) + MAIN_OUT + (3, 64)]
+
+
+def _stem_inputs(n, h, w, cin, cout, gen):
+    img = torch.randn((n, h, w, cin), device="cuda", generator=gen)
+    k = torch.randn((cout, cin, 3, 3), device="cuda", generator=gen) * 0.1
+    b = torch.randn(cout, device="cuda", generator=gen)
+    ph = torch.stack([extract_stem_phases(img[i]) for i in range(n)])
+    return img, ph, k, b
+
+
+def phase_k2():
+    """K2 against its plain version: f32 (TF32 off) within 1e-5 x max|ref|,
+    bf16 within 1 bf16 ulp of the plain version's f32 result, ReLU off and
+    on; on the deploy image also against cuDNN's stem conv."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for n, h, w, cin, cout in K2_CASES:
+        img, ph, k, b = _stem_inputs(n, h, w, cin, cout, gen)
+        out_hw = ((h + 1) // 2, (w + 1) // 2)
+        for dtype in (torch.float32, torch.bfloat16):
+            for relu in (False, True):
+                tag = (f"({n},{h},{w},{cin})->{cout} relu={int(relu)} "
+                       f"{str(dtype)[6:]}")
+                phd = ph.to(dtype)
+                got = kernels.stem_conv3x3_s2(phd, k, b, out_hw, relu=relu)
+                torch.cuda.synchronize()
+                if (tuple(got.shape) != (n, cout) + out_hw
+                        or got.dtype != dtype or not got.is_contiguous(
+                            memory_format=torch.channels_last)):
+                    raise AssertionError(f"{tag}: bad output {got.shape} "
+                                         f"{got.dtype} {got.stride()}")
+                ref = kernels.stem_conv3x3_s2_plain(
+                    phd.float(), k.to(dtype).float(), b, out_hw, relu=relu)
+                err = (f32_rel_check(got, ref, tag) if dtype == torch.float32
+                       else bf16_ulp_check(got, ref, tag))
+                results[tag] = err
+                log(f"[k2] {tag}: max_abs_err {err:.3g}")
+        if (h, w) == MAIN_OUT:
+            lib = F.conv2d(img.permute(0, 3, 1, 2), k, b, stride=2, padding=1)
+            got = kernels.stem_conv3x3_s2(ph, k, b, out_hw)
+            err = f32_rel_check(got, lib, "K2 vs cuDNN stem conv")
+            log(f"[k2] deploy image f32 vs cuDNN's stem conv of the image: "
+                f"max|diff| {err:.3g}, max|ref| "
+                f"{float(lib.abs().max()):.3g}")
+    return results
+
+
+def time_k2():
+    """K2 at the deploy shape in bf16: the launch on weights prepared once
+    (as the deploy body runs it), the wrapper (with its per-call weight
+    prep), the plain version, cuDNN's stem conv of the bf16 channels_last
+    image, and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, h, w, cin, cout = K2_CASES[-1]
+    img, ph, k, b = _stem_inputs(n, h, w, cin, cout, gen)
+    ph = ph.to(torch.bfloat16)
+    k, b = k.to(torch.bfloat16), b.to(torch.bfloat16)  # as dev_params hold
+    out_hw = ((h + 1) // 2, (w + 1) // 2)
+    km, bf = kernels.stem_weights(k, b, ph.dtype, ph.device)
+    ms = cuda_ms(
+        lambda: kernels.stem_conv3x3_s2_prepared(ph, km, bf, out_hw), 200)
+    wrapper_ms = cuda_ms(
+        lambda: kernels.stem_conv3x3_s2(ph, k, b, out_hw), 200)
+    plain_ms = cuda_ms(
+        lambda: kernels.stem_conv3x3_s2_plain(ph, k, b, out_hw), 20)
+    img_cl = img.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    k_cl = k.contiguous(memory_format=torch.channels_last)
+    with autotuned():
+        library_ms = cuda_ms(
+            lambda: F.conv2d(img_cl, k_cl, b, stride=2, padding=1), 200)
+    ho, wo = out_hw
+    # the planes' rows < Ho+1 and columns < Wo+1, which is all K2 reads
+    # (Hp also holds the TPU's row tile and carry rows), the weights, the
+    # bias and the output
+    n_bytes = (n * 4 * cin * (ho + 1) * min(ph.shape[3], wo + 1)
+               * ph.element_size() + km.numel() * 4 + cout * 4
+               + n * ho * wo * cout * 2)
+    bd = bound(n_bytes, 2 * n * ho * wo * 9 * cin * cout, BF16_OPS_PER_S)
+    log(f"[k2] deploy shape bf16 {tuple(ph.shape)} -> {(n, cout, ho, wo)}: "
+        f"kernel {ms:.4f} ms (wrapper with weight prep {wrapper_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, library (cuDNN stem conv) "
+        f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']} ({bd['bytes']} B, {bd['ops']} ops)")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
+
+
+# ---------------------------------------------------------------------------
+# 3c. K3 (fused bottleneck) against its plain version, and its probe
+# ---------------------------------------------------------------------------
+
+# (N, H, W, cin, cm, d): tests/test_bottleneck.py's f32 cases, batch 2,
+# cm off the 32-channel staging step, and the pruned R101's dilations
+K3_F32_CASES = [(1, 13, 17, 256, 128, 2), (1, 16, 33, 128, 128, 1),
+                (1, 9, 21, 256, 128, 4), (2, 13, 17, 256, 128, 2),
+                (1, 11, 13, 48, 24, 3), (1, 20, 37, 64, 32, 8),
+                (1, 21, 40, 64, 32, 16)]
+# bf16 (the tensor-core path): the test's case (no biases), batch 2, cm
+# off the 16-channel mma step, and d 16
+K3_BF16_CASES = [(1, 12, 19, 256, 128, 2), (2, 13, 17, 256, 128, 2),
+                 (1, 11, 13, 48, 24, 3), (1, 21, 40, 64, 32, 16)]
+# the pruned DeepLabV3-R101's trunk at 1025x2049 (os 8): layer3's identity
+# blocks (1024 -> 128 -> 1024, d 2) and layer4's (2048 -> 256, d 16)
+K3_DEPLOY = {"layer3": (1, 129, 257, 1024, 128, 2),
+             "layer4": (1, 129, 257, 2048, 256, 16)}
+
+
+def _bottleneck_inputs(n, h, w, cin, cm, gen, dtype, scales):
+    """x and OIHW weights in ``dtype``, f32 biases; ``scales`` for x, w1,
+    w2, w3 and the biases."""
+    sx, s1, s2, s3, sb = scales
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    x = (rnd(n, cin, h, w) * sx).to(dtype)
+    ws = [(rnd(*shape) * sc).to(dtype) for shape, sc in (
+        ((cm, cin, 1, 1), s1), ((cm, cm, 3, 3), s2), ((cin, cm, 1, 1), s3))]
+    bs = [rnd(k) * sb for k in (cm, cm, cin)]
+    return x, (ws[0], bs[0], ws[1], bs[1], ws[2], bs[2])
+
+
+def bf16_rule(got, ref, tag):
+    """tests/test_bottleneck.py's bf16 rule: max|diff| <= 0.15 and under
+    1% of values off by more than 0.05.  Returns (max, share > 0.05)."""
+    diff = (got.float() - ref.float()).abs()
+    mx, share = float(diff.max()), float((diff > 0.05).float().mean())
+    if mx > 0.15 or share >= 0.01:
+        raise AssertionError(f"{tag}: max|diff| {mx:.3g}, "
+                             f"{100 * share:.3f}% > 0.05")
+    return mx, share
+
+
+def _k3_both_layouts(x, args, d, tag):
+    """K3 on x as given and on its channels_last copy: equal outputs, each
+    in its input's memory format."""
+    got = bottleneck.fused_bottleneck(x, *args, dilation=d)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    got_cl = bottleneck.fused_bottleneck(x_cl, *args, dilation=d)
+    torch.cuda.synchronize()
+    if not got_cl.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"{tag}: channels_last input, output not")
+    if not torch.equal(got, got_cl):
+        raise AssertionError(f"{tag}: contiguous and channels_last inputs "
+                             "give different outputs")
+    return got
+
+
+def phase_k3():
+    """K3 against its plain version on tests/test_bottleneck.py's cases
+    and a few more: f32 at its rtol = atol = 2e-5, bf16 by its rule;
+    contiguous and channels_last input must give equal outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = {}
+    cases = ([(c, torch.float32) for c in K3_F32_CASES]
+             + [(c, torch.bfloat16) for c in K3_BF16_CASES])
+    for case, dtype in cases:
+        n, h, w, cin, cm, d = case
+        tag = f"({n},{cin},{h},{w}) cm {cm} d {d} {str(dtype)[6:]}"
+        x, args = _bottleneck_inputs(n, h, w, cin, cm, gen, dtype,
+                                     (1.0, 0.05, 0.05, 0.05, 1.0))
+        if case is K3_BF16_CASES[0]:  # the test's bf16 case has no biases
+            args = (args[0], None, args[2], None, args[4], None)
+        got = _k3_both_layouts(x, args, d, tag)
+        ref = bottleneck.fused_bottleneck_plain(x, *args, dilation=d)
+        if dtype == torch.float32:
+            err = float((got - ref).abs().max())
+            if not torch.allclose(got, ref, rtol=2e-5, atol=2e-5):
+                raise AssertionError(f"{tag}: max|diff| {err:.3g} beyond "
+                                     "rtol = atol = 2e-5")
+            results[tag] = err
+            log(f"[k3] {tag}: max_abs_err {err:.3g}")
+        else:
+            mx, share = bf16_rule(got, ref, tag)
+            results[tag] = mx
+            log(f"[k3] {tag}: max_abs_err {mx:.3g}, "
+                f"{100 * share:.4f}% > 0.05")
+    # a bf16 channels_last x off a 16-byte boundary is refused, not
+    # launched (the kernel reads it in 16-byte runs)
+    x, args = _bottleneck_inputs(1, 13, 17, 256, 128, gen, torch.bfloat16,
+                                 (1.0, 0.05, 0.05, 0.05, 1.0))
+    buf = torch.empty(1 + x.numel(), dtype=x.dtype, device="cuda")
+    x_off = buf[1:].view(1, 13, 17, 256).permute(0, 3, 1, 2)
+    x_off.copy_(x)
+    before = kernels.LAUNCHES["fused_bottleneck"]
+    try:
+        bottleneck.fused_bottleneck(x_off, *args, dilation=2)
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
+        log(f"[k3] misaligned bf16 x refused: {e}")
+    else:
+        raise AssertionError("K3 launched on a misaligned bf16 x")
+    if kernels.LAUNCHES["fused_bottleneck"] != before:
+        raise AssertionError("K3 counted a launch for a refused x")
+    return results
+
+
+def _cudnn_chain(x, w1, b1, w2, b2, w3, b3, d):
+    """The chain the port's graph runs for a bottleneck: three cuDNN convs
+    with bias, two ReLUs, the residual add and the last ReLU, on
+    channels_last weights as the deploy path holds them.  Call it under
+    :func:`autotuned`: PyTorch keeps the first cuDNN plan made for a conv
+    configuration whatever ``cudnn.benchmark`` says later, and cuDNN's
+    untuned pick for the dilated 3x3 at layer4 runs 100x slower."""
+    t = torch.relu(F.conv2d(x, w1, b1))
+    t = torch.relu(F.conv2d(t, w2, b2, padding=d, dilation=d))
+    return torch.relu(F.conv2d(t, w3, b3) + x)
+
+
+def phase_k3_probe():
+    """K3's path: its probe (tools/exp_bottleneck.py) at the pruned R101's
+    layer3 and layer4 shapes, bf16 channels_last, with the probe's
+    scales.  Counts set to 0 before the two calls and read after; then
+    each output against the plain version (the bf16 rule) and the cuDNN
+    chain (printed, as the probe prints it), and timings."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inputs = {}
+    for name, (n, h, w, cin, cm, d) in K3_DEPLOY.items():
+        x, args = _bottleneck_inputs(n, h, w, cin, cm, gen, torch.bfloat16,
+                                     (0.5, 0.04, 0.08, 0.08, 0.1))
+        inputs[name] = (x.contiguous(memory_format=torch.channels_last),
+                        args, d)
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    outs = {name: bottleneck.fused_bottleneck(x, *args, dilation=d)
+            for name, (x, args, d) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["fused_bottleneck"] != len(K3_DEPLOY):
+        raise AssertionError(f"K3 probe: {launches} launches, want one per "
+                             "shape")
+    check, times = {}, {}
+    for name, (x, args, d) in inputs.items():
+        got = outs[name]
+        if (got.shape != x.shape or got.dtype != x.dtype
+                or not got.is_contiguous(memory_format=torch.channels_last)
+                or not bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K3 {name}: bad output")
+        ref = bottleneck.fused_bottleneck_plain(x, *args, dilation=d)
+        mx, share = bf16_rule(got, ref, f"K3 {name} vs plain")
+        with autotuned():
+            chain = _cudnn_chain(x, *(
+                a.to(x.dtype).contiguous(memory_format=torch.channels_last)
+                if a.dim() == 4 else a.to(x.dtype) for a in args), d)
+        cdiff = (got.float() - chain.float()).abs()
+        check[name] = {"max_abs_err": mx, "share_over_0.05": share,
+                       "cudnn_chain_max_diff": float(cdiff.max()),
+                       "cudnn_chain_share_over_0.05":
+                           float((cdiff > 0.05).float().mean())}
+        log(f"[k3] probe {name} {tuple(x.shape)} d {d} bf16: vs plain "
+            f"max|diff| {mx:.3g}, {100 * share:.4f}% > 0.05; vs cuDNN chain "
+            f"max|diff| {check[name]['cudnn_chain_max_diff']:.3g}, "
+            f"{100 * check[name]['cudnn_chain_share_over_0.05']:.4f}% > 0.05")
+        del ref, chain, cdiff
+        times[name] = time_k3(name, x, args, d)
+    return launches, check, times
+
+
+def time_k3(name, x, args, d):
+    n, cin, h, w = x.shape
+    cm = args[0].shape[0]
+    prepped = bottleneck.bottleneck_weights(*args, x.dtype, x.device)
+    ms = cuda_ms(lambda: bottleneck.fused_bottleneck_launch(
+        x, prepped, dilation=d), 10, warmup=2)
+    wrapper_ms = cuda_ms(lambda: bottleneck.fused_bottleneck(
+        x, *args, dilation=d), 10, warmup=2)
+    plain_ms = cuda_ms(lambda: bottleneck.fused_bottleneck_plain(
+        x, *args, dilation=d), 10, warmup=2)
+    lib_args = [a.to(x.dtype).contiguous(memory_format=torch.channels_last)
+                if a.dim() == 4 else a.to(x.dtype) for a in args]
+    with autotuned():
+        library_ms = cuda_ms(lambda: _cudnn_chain(x, *lib_args, d), 50)
+    n_bytes = (2 * x.numel() * x.element_size()
+               + sum(a.numel() * a.element_size() for a in prepped))
+    n_ops = 2 * n * h * w * (2 * cin * cm + 9 * cm * cm)
+    bd = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[k3] {name} {tuple(x.shape)} cm {cm} d {d} bf16: kernel "
+        f"{ms:.4f} ms (wrapper with weight prep {wrapper_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, library (cuDNN chain) {library_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+        f"({bd['bytes']} B, {bd['ops']} ops; kernel at "
+        f"{n_ops / ms / 1e9:.1f} TFLOP/s)")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
+
+
 # ---------------------------------------------------------------------------
 # 4. forward on the card against the CPU
 # ---------------------------------------------------------------------------
 
 def phase_forward():
+    """DeepLabV3-R50 at 65x65, f32: the card against the port's CPU run on
+    the same params, from NHWC and from phase planes (stem conv through
+    K2 on the card), and the card's phases logits against its NHWC ones;
+    each within 1e-3 x max|logit|."""
     cfg = dict(R101_CFG, backbone="resnet50")
     graph = build_model("deeplabv3", **cfg).graph
     params, state = init_graph(graph, torch.Generator().manual_seed(0),
                                device="cpu")
-    image = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (1, 65, 65, 3)).astype(np.float32))
+    image = np.random.default_rng(0).standard_normal(
+        (1, 65, 65, 3)).astype(np.float32)
+    phases = np.stack([extract_stem_phases(image[0])])
+    inputs = {"nhwc": torch.from_numpy(image),
+              "phases": torch.from_numpy(phases)}
     outs = {}
-    for dev in ("cpu", "cuda"):
-        fn, p = make_inference_fn(graph, params, state, dtype=torch.float32,
-                                  output="logits", device=dev)
-        outs[dev] = fn(p, image).cpu()
-    ref, got = outs["cpu"], outs["cuda"]
-    if got.shape != (1, 65, 65, 19) or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"R50 forward: bad logits {got.shape}")
-    err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
-    log(f"[forward] DeepLabV3-R50 1x65x65 f32 card vs CPU: max|diff| "
-        f"{err:.3g}, max|logit| {scale:.3g}, ratio {err / scale:.3g}")
-    if err > 1e-3 * scale:
-        raise AssertionError("R50 forward differs from the CPU run")
+    for fmt, x in inputs.items():
+        for dev in ("cpu", "cuda"):
+            fn, p = make_inference_fn(graph, params, state,
+                                      dtype=torch.float32, output="logits",
+                                      input_format=fmt, input_hw=(65, 65),
+                                      device=dev)
+            outs[fmt, dev] = fn(p, x).cpu()
+
+    def compare(got, ref, what):
+        if got.shape != (1, 65, 65, 19) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"R50 forward: bad logits {got.shape}")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"[forward] DeepLabV3-R50 1x65x65 f32 {what}: max|diff| "
+            f"{err:.3g}, max|logit| {scale:.3g}, ratio {err / scale:.3g}")
+        if err > 1e-3 * scale:
+            raise AssertionError(f"R50 forward: {what} differ")
+
+    compare(outs["nhwc", "cuda"], outs["nhwc", "cpu"], "card vs CPU")
+    compare(outs["phases", "cuda"], outs["phases", "cpu"],
+            "phases card vs CPU")
+    compare(outs["phases", "cuda"], outs["nhwc", "cuda"],
+            "phases vs nhwc on the card")
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +624,10 @@ def _kernel_class(name):
     low = name.lower()
     if "resize_argmax" in low:
         return "K1 resize_argmax"
+    if "stem_mma_kernel" in low or "stem_fma_kernel" in low:
+        return "K2 stem_conv3x3_s2"
+    if "bottleneck_kernel" in low:
+        return "K3 fused_bottleneck"
     if any(t in low for t in ("conv", "fprop", "cudnn")):
         return "convolution"
     if any(t in low for t in ("gemm", "gemv", "nvjet")):
@@ -256,7 +635,7 @@ def _kernel_class(name):
     return "other (elementwise, copies, pools)"
 
 
-def profile_requests(request, n=5):
+def profile_requests(request, n=5, tag=""):
     """Where one request's device time goes: torch.profiler over ``n``
     requests after a warm one; kernel time by class, the top kernels, and
     the device's busy share of the window's wall time."""
@@ -284,7 +663,7 @@ def profile_requests(request, n=5):
                                                      0.0) + us
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
     top_ops = sorted(ops_us.items(), key=lambda kv: -kv[1])[:10]
-    log("[profile] " + json.dumps({
+    log(f"[profile{tag}] " + json.dumps({
         "requests": n, "wall_ms_per_request": wall_us / n / 1e3,
         "device_busy_ms_per_request": busy_us / n / 1e3,
         "device_busy_share": busy_us / wall_us if wall_us else None,
@@ -329,9 +708,9 @@ def phase_serve():
     kw = dict(dtype=torch.bfloat16, fold_bn=True, output="argmax",
               input_format="nchw")
     fn, dev_params = make_inference_fn(result.graph, pparams, pstate, **kw)
-    requests = [torch.from_numpy(rng.uniform(-1, 1, (1, 3) + MAIN_OUT)
-                                 .astype(np.float32)).cuda()
-                for _ in range(4)]
+    images = [rng.uniform(-1, 1, (1, 3) + MAIN_OUT).astype(np.float32)
+              for _ in range(4)]
+    requests = [torch.from_numpy(im).cuda() for im in images]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -376,7 +755,13 @@ def phase_serve():
     pruned = benchmark(lambda img: fn(dev_params, img), requests[0],
                        warmup=10, iters=50, blocks=3)
     profile_requests(lambda: fn(dev_params, requests[1]))
-    del fn, dev_params, body, p, z
+    del body, p, z
+    phases = phase_serve_phases(result.graph, pparams, pstate, images,
+                                answers)
+    # the two paths in turns: nchw, phases, phases (above), nchw
+    pruned_again = benchmark(lambda img: fn(dev_params, img), requests[0],
+                             warmup=10, iters=50, blocks=3)
+    del fn, dev_params
     ufn, udev = make_inference_fn(graph, params, state, **kw)
     unpruned = benchmark(lambda img: ufn(udev, img), requests[0],
                          warmup=10, iters=50, blocks=3)
@@ -387,6 +772,14 @@ def phase_serve():
         "unpruned_ms_per_img": unpruned["ms_per_batch"],
         "unpruned_img_per_s": unpruned["images_per_sec"],
         "unpruned_ms_blocks": unpruned["ms_blocks"],
+        "pruned_again_ms_per_img": pruned_again["ms_per_batch"],
+        "pruned_again_ms_blocks": pruned_again["ms_blocks"],
+        "phases_ms_per_img": phases["timing"][0]["ms_per_batch"],
+        "phases_img_per_s": phases["timing"][0]["images_per_sec"],
+        "phases_ms_blocks": phases["timing"][0]["ms_blocks"],
+        "phases_again_ms_per_img": phases["timing"][1]["ms_per_batch"],
+        "phases_again_ms_blocks": phases["timing"][1]["ms_blocks"],
+        "phases_vs_nchw_label_agreement": phases["agreement"],
         "speedup_pruned_vs_unpruned": (unpruned["ms_per_batch"]
                                        / pruned["ms_per_batch"]),
         "global_percent": gp, "flops_ratio": report["flops_ratio"],
@@ -394,7 +787,71 @@ def phase_serve():
         "max_memory_allocated_bytes": peak,
     }
     log("[serve] " + json.dumps(summary))
-    return launches, serve_check
+    return launches, serve_check, phases
+
+
+def phase_serve_phases(graph, pparams, pstate, images, nchw_answers):
+    """The pruned R101 served from stride-2 phase planes: the planes of
+    the 4 request images built on the host with ``extract_stem_phases``,
+    answered by ``make_inference_fn(input_format="phases")`` with K2 and
+    K1 each launched once per request (counts set to 0 before, read
+    after); K2 on request 0's planes against its plain version; label
+    agreement with the NCHW path (printed, not asserted: with random
+    weights the logits' margins lie below bf16 resolution); the path
+    timed twice and profiled."""
+    requests = [torch.from_numpy(np.stack([extract_stem_phases(
+        np.ascontiguousarray(im[0].transpose(1, 2, 0)))])).cuda()
+        for im in images]
+    fn, dev_params = make_inference_fn(
+        graph, pparams, pstate, dtype=torch.bfloat16, fold_bn=True,
+        output="argmax", input_format="phases", input_hw=MAIN_OUT)
+    torch.cuda.synchronize()
+
+    # -- the phases path: counts from 0, 4 requests, counts read after
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    answers = []
+    for i, ph in enumerate(requests):
+        before = dict(kernels.LAUNCHES)
+        answers.append(fn(dev_params, ph))
+        for k in ("stem_conv3x3_s2", "resize_argmax"):
+            if kernels.LAUNCHES[k] != before[k] + 1:
+                raise AssertionError(f"phases request {i}: {k} did not run "
+                                     "exactly once")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    agreement = []
+    for i, labels in enumerate(answers):
+        if (labels.shape != (1,) + MAIN_OUT or labels.dtype != torch.uint8
+                or int(labels.max()) >= 19):
+            raise AssertionError(f"phases request {i}: bad labels "
+                                 f"{labels.shape}")
+        agreement.append(float((labels == nchw_answers[i]).float().mean()))
+    log(f"[serve] phases: {len(requests)} requests {tuple(requests[0].shape)}"
+        f" f32 answered; launches {launches}; label agreement with the "
+        f"nchw path per request {agreement}")
+
+    # K2 on request 0's planes against its plain version (bf16 rule)
+    from dcfp_tpu_torch.ops.stem import stem_plan
+    stem = stem_plan(graph)[1]
+    sp = dev_params[stem]
+    ph0 = requests[0].to(torch.bfloat16)
+    out_hw = ((MAIN_OUT[0] + 1) // 2, (MAIN_OUT[1] + 1) // 2)
+    # K2 on the weights the path prepared once, the plain version from
+    # the folded conv's own kernel and bias
+    got = kernels.stem_conv3x3_s2_prepared(ph0, sp["k2_taps"], sp["k2_bias"],
+                                           out_hw)
+    ref = kernels.stem_conv3x3_s2_plain(
+        ph0.float(), sp["kernel"].float(), sp["bias"].float(), out_hw)
+    err = bf16_ulp_check(got, ref, "serving request 0 stem conv")
+    log(f"[serve] phases: K2 ({stem}, {tuple(sp['kernel'].shape)}) on "
+        f"request 0 vs plain: max_abs_err {err:.3g}")
+
+    timing = [benchmark(lambda x: fn(dev_params, x), requests[0], warmup=10,
+                        iters=50, blocks=3) for _ in range(2)]
+    profile_requests(lambda: fn(dev_params, requests[1]), tag=" phases")
+    return {"launches": launches, "agreement": agreement,
+            "k2_max_abs_err": err, "timing": timing}
 
 
 def main():
@@ -402,20 +859,56 @@ def main():
     phase_build()
     k1_cases = phase_k1()
     k1_time = time_k1()
+    k2_cases = phase_k2()
+    k3_cases = phase_k3()
     phase_forward()
-    launches, serve_check = phase_serve()
+    launches, serve_check, phases = phase_serve()
+    # the bf16 cuDNN yardsticks after serving: they make their plans
+    # autotuned, as serving does, but the serving run comes first
+    k2_time = time_k2()
+    k3_launches, k3_check, k3_time = phase_k3_probe()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
-    kernel_line = {"kernels": [dict(
-        name="resize_argmax", route="cuda",
-        source="dcfp_tpu_torch/csrc/resize_argmax.cu",
-        replaces="dcfp_tpu/ops/pallas_kernels.py:83",
-        launches=launches["resize_argmax"],
-        max_abs_err=max(main_case[1], serve_check[1]),
-        check={"cases": len(k1_cases),
-               "mismatched_pixels": sum(v[0] for v in k1_cases.values()),
-               "serving_mismatched_pixels": serve_check[0]},
-        **k1_time)]}
+    k2_main = max(v for k, v in k2_cases.items()
+                  if k.startswith(f"(1,{MAIN_OUT[0]},{MAIN_OUT[1]},"))
+    k3_main = k3_time["layer3"]
+    kernel_line = {"kernels": [
+        dict(name="resize_argmax", route="cuda",
+             source="dcfp_tpu_torch/csrc/resize_argmax.cu",
+             replaces="dcfp_tpu/ops/pallas_kernels.py:83",
+             launches=launches["resize_argmax"],
+             max_abs_err=max(main_case[1], serve_check[1]),
+             check={"cases": len(k1_cases),
+                    "mismatched_pixels": sum(v[0] for v in k1_cases.values()),
+                    "serving_mismatched_pixels": serve_check[0],
+                    "launches_on_phases_path":
+                        phases["launches"]["resize_argmax"]},
+             **k1_time),
+        dict(name="stem_conv3x3_s2", route="cuda",
+             source="dcfp_tpu_torch/csrc/stem_conv.cu",
+             replaces="dcfp_tpu/ops/pallas_kernels.py:196",
+             launches=phases["launches"]["stem_conv3x3_s2"],
+             max_abs_err=max(k2_main, phases["k2_max_abs_err"]),
+             check={"cases": len(k2_cases),
+                    "max_abs_err_all_cases": max(k2_cases.values()),
+                    "serving_max_abs_err": phases["k2_max_abs_err"],
+                    "rule": "f32 <= 1e-5 x max|ref|; bf16 within 1 bf16 ulp"
+                            " (+1e-6 x max|ref|) of the plain f32 result"},
+             **k2_time),
+        dict(name="fused_bottleneck", route="cuda",
+             source="dcfp_tpu_torch/csrc/bottleneck.cu",
+             replaces="dcfp_tpu/ops/bottleneck.py:189",
+             launches=k3_launches["fused_bottleneck"],
+             max_abs_err=max(v["max_abs_err"] for v in k3_check.values()),
+             check={"cases": len(k3_cases),
+                    "max_abs_err_small_cases": max(k3_cases.values()),
+                    "probe": k3_check,
+                    "rule": "f32 rtol = atol = 2e-5; bf16 max <= 0.15 and "
+                            "< 1% off by > 0.05",
+                    "path": "probe at the pruned R101 layer3 and layer4 "
+                            "shapes"},
+             **k3_main, layer4=k3_time["layer4"]),
+    ]}
     log(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

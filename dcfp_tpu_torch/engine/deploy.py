@@ -6,7 +6,10 @@ argmax (port of ``dcfp_tpu/engine/deploy.py``, main path).
   ``channels_last`` tensors;
 * emit uint8 labels through the fused resize-argmax kernel (K1,
   ``dcfp_tpu_torch.ops.kernels``), so the full-resolution logits are
-  never written to device memory.
+  never written to device memory;
+* optionally take the image as its stride-2 phase planes
+  (``input_format="phases"``), whose stem conv runs as the stem conv
+  kernel (K2) and the rest of the graph re-rooted after it.
 
 PyTorch runs eagerly, so there is no AOT compile or serialized artifact
 here yet; ``make_split_inference_fn`` keeps the JAX package's body/tail
@@ -87,6 +90,20 @@ def fold_batchnorm(graph: Graph, params: Dict, state: Dict
 # inference function
 # ---------------------------------------------------------------------------
 
+def _reroot_at(graph: Graph, seed: str, old_input: str) -> Graph:
+    """Copy of ``graph`` with node ``seed`` turned into an input node and
+    the original input removed (the phases path computes ``seed``, the
+    stem conv, outside the graph interpreter)."""
+    g = graph.copy()
+    node = g.node(seed)
+    node.op = "input"
+    node.inputs = ()
+    node.attrs = {}
+    del g.nodes[old_input]
+    g.inputs = [seed]
+    return g
+
+
 def _to_device(tree: Dict, dev: torch.device, dtype: torch.dtype) -> Dict:
     """Floating tensors to ``dev``/``dtype``; conv kernels channels_last
     on CUDA, the memory format cuDNN's NHWC convolutions take."""
@@ -104,13 +121,17 @@ def _to_device(tree: Dict, dev: torch.device, dtype: torch.dtype) -> Dict:
 def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
                             dtype: torch.dtype = torch.bfloat16,
                             fold_bn: bool = True, output: str = "logits",
-                            input_format: str = "nhwc",
+                            input_format: str = "nhwc", input_hw=None,
                             device: DeviceLike = None):
     """Returns (body_fn, tail_fn, dev_params).
 
-    ``body_fn(params, image)`` runs the conv graph on ``image`` (NHWC, or
+    ``body_fn(params, image)`` runs the conv graph on ``image``: NHWC;
     NCHW with ``input_format="nchw"``, which goes straight into the NCHW
-    graph).  When ``output='argmax'`` and the graph ends in a to-input
+    graph; or, with ``input_format="phases"`` and the image size
+    ``input_hw``, the (N, 4*C, Hp, Wp) stride-2 phase planes of each image
+    (``ops.stem.extract_stem_phases``), whose stem conv runs as K2 on the
+    planes cast to ``dtype``, the rest of the graph re-rooted after it.
+    When ``output='argmax'`` and the graph ends in a to-input
     bilinear-resize 'pred' node, ``body_fn`` returns the LOW-RES logits,
     shape (N, C, h, w) in the model dtype (channels_last in memory on
     CUDA, as the classifier conv leaves them), and
@@ -121,11 +142,12 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
 
     Params and state are the port's tensors (``init_graph`` or
     ``bridge.params_from_numpy``); ``dev_params`` is their folded copy on
-    ``device`` in ``dtype``.
+    ``device`` in ``dtype``.  Under ``input_format="phases"`` the stem
+    conv's entry also holds K2's weights, ``k2_taps`` and ``k2_bias``
+    (``ops.kernels.stem_weights``), which ``body_fn`` reads.
     """
-    if input_format not in ("nhwc", "nchw"):
-        raise ValueError(f"input_format {input_format!r} is not supported "
-                         "(the port has 'nhwc' and 'nchw')")
+    if input_format not in ("nhwc", "nchw", "phases"):
+        raise ValueError(f"unknown input_format {input_format!r}")
     dev = resolve_device(device)
     if fold_bn:
         graph, params, state = fold_batchnorm(graph, params, state)
@@ -133,23 +155,50 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     dev_state = _to_device(state, dev, torch.float32)
 
     run_graph = graph
+    stem_conv = None
+    if input_format == "phases":
+        from dcfp_tpu_torch.ops.stem import stem_plan
+        stem = stem_plan(graph)
+        if stem is None:
+            raise ValueError(
+                "input_format='phases' requires a 3xK3-s2 stem conv on the "
+                "graph input (none found)")
+        if input_hw is None:
+            raise ValueError("input_format='phases' requires input_hw")
+        input_name, stem_conv = stem
+        run_graph = _reroot_at(graph, stem_conv, input_name)
+        input_hw = (int(input_hw[0]), int(input_hw[1]))
+        # K2's weights, made once here rather than on every request
+        from dcfp_tpu_torch.ops.kernels import stem_weights
+        sp = dev_params[stem_conv]
+        sp["k2_taps"], sp["k2_bias"] = stem_weights(
+            sp["kernel"], sp.get("bias"), dtype, dev)
     tail_resize = None
     if output == "argmax" and "pred" in graph.nodes:
         node = graph.node("pred")
         if node.op == "resize" and node.attrs.get("to_input"):
             tail_resize = node
-            run_graph = graph.copy()
+            run_graph = run_graph.copy()
             run_graph.outputs = [node.inputs[0] if o == "pred" else o
                                  for o in run_graph.outputs]
 
     @torch.inference_mode()
     def body_fn(p, image):
-        x = image.permute(0, 3, 1, 2) if input_format == "nhwc" else image
-        hw = (int(x.shape[2]), int(x.shape[3]))
-        x = x.to(dev, dtype)
-        if dev.type == "cuda":
-            x = x.contiguous(memory_format=torch.channels_last)
-        outs, _ = graph_apply(run_graph, p, dev_state, {"image": x},
+        if stem_conv is not None:
+            from dcfp_tpu_torch.ops.kernels import stem_conv3x3_s2_prepared
+            sp = p[stem_conv]
+            hw = input_hw
+            feed = {stem_conv: stem_conv3x3_s2_prepared(
+                image.to(dev, dtype).contiguous(), sp["k2_taps"],
+                sp["k2_bias"], ((hw[0] + 1) // 2, (hw[1] + 1) // 2))}
+        else:
+            x = image.permute(0, 3, 1, 2) if input_format == "nhwc" else image
+            hw = (int(x.shape[2]), int(x.shape[3]))
+            x = x.to(dev, dtype)
+            if dev.type == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            feed = {graph.inputs[0]: x}
+        outs, _ = graph_apply(run_graph, p, dev_state, feed,
                               input_hw=hw, channels_first=True)
         if tail_resize is not None:
             return outs[tail_resize.inputs[0]]
@@ -170,8 +219,11 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     return body_fn, tail_fn, dev_params
 
 
-def infer_out_hw(input_shape, input_format: str = "nhwc") -> Tuple[int, int]:
+def infer_out_hw(input_shape, input_format: str = "nhwc",
+                 input_hw=None) -> Tuple[int, int]:
     """The full-resolution output size for a deploy input shape."""
+    if input_format == "phases":
+        return (int(input_hw[0]), int(input_hw[1]))
     hw = (input_shape[2:4] if input_format == "nchw"
           else input_shape[1:3])
     return (int(hw[0]), int(hw[1]))
@@ -180,20 +232,22 @@ def infer_out_hw(input_shape, input_format: str = "nhwc") -> Tuple[int, int]:
 def make_inference_fn(graph: Graph, params: Dict, state: Dict, *,
                       dtype: torch.dtype = torch.bfloat16,
                       fold_bn: bool = True, output: str = "logits",
-                      input_format: str = "nhwc",
+                      input_format: str = "nhwc", input_hw=None,
                       device: DeviceLike = None):
     """Returns (fn, params) where ``fn(params, image)`` runs the deploy
     forward: body then, for ``output='argmax'``, the fused tail.
-    ``output``: 'logits' (float32 NHWC) or 'argmax' (uint8 (N, H, W))."""
+    ``output``: 'logits' (float32 NHWC) or 'argmax' (uint8 (N, H, W)).
+    ``input_format`` and ``input_hw`` as for
+    :func:`make_split_inference_fn`."""
     body_fn, tail_fn, dev_params = make_split_inference_fn(
         graph, params, state, dtype=dtype, fold_bn=fold_bn, output=output,
-        input_format=input_format, device=device)
+        input_format=input_format, input_hw=input_hw, device=device)
     if tail_fn is None:
         return body_fn, dev_params
 
     def fn(p, image):
         return tail_fn(body_fn(p, image),
-                       infer_out_hw(image.shape, input_format))
+                       infer_out_hw(image.shape, input_format, input_hw))
 
     return fn, dev_params
 

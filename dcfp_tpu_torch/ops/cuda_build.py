@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class Built:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # nvcc wall time; 0.0 when a built library was reused
+    seconds: float  # nvcc wall time (parallel builds overlap); 0.0 when
+                    # a built library was reused
     log: str        # nvcc/ptxas output (registers, spills)
 
 
@@ -51,27 +52,47 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built from source")
 
 
-def load(name: str) -> Built:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def load_all(names: Iterable[str]) -> Dict[str, Built]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for every name;
+    cached per process.  The missing libraries are compiled in parallel,
+    one ``nvcc`` per source, all started together."""
+    names = list(dict.fromkeys(names))
+    todo = [n for n in names if n not in _LOADED]
+    jobs = {}
+    for name in todo:
+        so = _target(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, cmd, tmp, so, time.perf_counter())
+    logs, secs = {}, {}
+    for name, (proc, cmd, tmp, so, t0) in jobs.items():
+        out, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        logs[name] = out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:"
-                               f"\n{' '.join(cmd)}\n{log}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}:"
+                               f"\n{' '.join(cmd)}\n{out}")
         os.replace(tmp, so)  # atomic: concurrent builders never see a stub
-    built = Built(ctypes.CDLL(str(so)), so, seconds, log)
-    _LOADED[name] = built
-    return built
+    for name in todo:
+        so = _target(name)
+        _LOADED[name] = Built(ctypes.CDLL(str(so)), so, secs.get(name, 0.0),
+                              logs.get(name, ""))
+    return {name: _LOADED[name] for name in names}
+
+
+def load(name: str) -> Built:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    return load_all([name])[name]

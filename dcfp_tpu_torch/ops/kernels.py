@@ -9,6 +9,15 @@ deploy tail (port of ``dcfp_tpu/ops/pallas_kernels.py`` ``_kernel`` /
 The upsampled logits are never written to device memory; only the uint8
 label map is.
 
+K2 ``stem_conv3x3_s2``: the 3x3 / stride-2 / pad-1 stem conv from
+stride-2 phase planes (port of ``dcfp_tpu/ops/pallas_kernels.py``
+``_stem_kernel`` / ``_stem_conv_planes``; source
+``dcfp_tpu_torch/csrc/stem_conv.cu``); the first op of the ``phases``
+deploy body.
+
+K3 ``fused_bottleneck`` lives in ``dcfp_tpu_torch.ops.bottleneck`` and
+counts its launches here too.
+
 Each wrapper takes its plain PyTorch version for a tensor on the CPU
 (the tests run there) and launches the kernel for a CUDA tensor, or
 raises; it never falls back.  ``LAUNCHES`` counts kernel launches, one
@@ -26,7 +35,10 @@ import torch
 
 from dcfp_tpu_torch.ops.resize import _interp_matrix, resize_bilinear
 
-LAUNCHES = {"resize_argmax": 0}
+LAUNCHES = {"resize_argmax": 0, "stem_conv3x3_s2": 0, "fused_bottleneck": 0}
+
+# csrc/<name>.cu of every kernel of the port
+SOURCES = ("resize_argmax", "stem_conv", "bottleneck")
 
 MAX_CLASSES = 256  # labels are uint8
 
@@ -108,23 +120,41 @@ def _taps(in_size: int, out_size: int, align_corners: bool,
             torch.from_numpy(wts).to(device))
 
 
-def build():
-    """Build (nvcc, at first use) and load K1; returns the
-    ``cuda_build.Built`` record (library, nvcc seconds and log)."""
+def build_all():
+    """Build (nvcc, at first use, all sources in parallel) and load every
+    kernel of the port; returns ``{source: cuda_build.Built}`` (library,
+    nvcc seconds and log)."""
+    from dcfp_tpu_torch.ops.cuda_build import load_all
+    return load_all(SOURCES)
+
+
+def c_entry(source: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of ``csrc/<source>.cu``, built at first use,
+    with its ``argtypes`` set.  Every pointer and the stream must be
+    ``c_void_p``: ctypes would pass a bare Python int as a 32-bit C int
+    and cut the address."""
     from dcfp_tpu_torch.ops.cuda_build import load
-    return load("resize_argmax")
-
-
-def _library():
-    fn = build().lib.dcfp_resize_argmax_cm
+    fn = getattr(load(source).lib, symbol)
     if fn.argtypes is None:
-        # every pointer and the stream as c_void_p: ctypes would pass a
-        # bare Python int as a 32-bit C int and cut the address
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, ci, ci, ci, cl, cl, cl, cl, ci, ci, vp, vp, vp,
-                       vp, vp, vp]
-        fn.restype = ci
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
+
+
+def run_c_entry(fn, device: torch.device, name: str, *args) -> None:
+    """Launch through C entry ``fn`` on ``device``'s current stream (the
+    stream is the last argument), raise if the launch failed, and count
+    it in ``LAUNCHES[name]``."""
+    # the launch goes to the current device, so make it the tensors' one
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _launch(z: torch.Tensor, out_hw: Tuple[int, int],
@@ -136,15 +166,140 @@ def _launch(z: torch.Tensor, out_hw: Tuple[int, int],
         return out
     ytap, ywt = _taps(h, out_h, align_corners, z.device)
     xtap, xwt = _taps(w, out_w, align_corners, z.device)
-    fn = _library()
-    # the launch goes to the current device, so make it z's for the call
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(z.data_ptr(), int(z.dtype == torch.bfloat16), n, c,
-                 *z.stride(), out_h, out_w, ytap.data_ptr(), ywt.data_ptr(),
-                 xtap.data_ptr(), xwt.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"resize_argmax kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["resize_argmax"] += 1
+    fn = c_entry("resize_argmax", "dcfp_resize_argmax_cm",
+                 [_VP, _CI, _CI, _CI, _CL, _CL, _CL, _CL, _CI, _CI, _VP, _VP,
+                  _VP, _VP, _VP, _VP])
+    run_c_entry(fn, z.device, "resize_argmax", z.data_ptr(),
+                int(z.dtype == torch.bfloat16), n, c, *z.stride(), out_h,
+                out_w, ytap.data_ptr(), ywt.data_ptr(), xtap.data_ptr(),
+                xwt.data_ptr(), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: stem conv from phase planes
+# ---------------------------------------------------------------------------
+
+def _stem_check(phases: torch.Tensor, cin: int, cout: int, bias,
+                out_hw) -> Tuple[int, int]:
+    if phases.dim() != 4:
+        raise ValueError(f"stem_conv3x3_s2: expected (N, 4*cin, Hp, Wp) "
+                         f"phases, got shape {tuple(phases.shape)}")
+    if phases.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"stem_conv3x3_s2: phases must be float32 or "
+                        f"bfloat16, got {phases.dtype}")
+    if not 1 <= cin <= 4 or phases.shape[1] != 4 * cin:
+        raise ValueError(f"stem_conv3x3_s2: {phases.shape[1]} phase planes "
+                         f"for a kernel with cin={cin} (need 4*cin, cin<=4)")
+    ho, wo = int(out_hw[0]), int(out_hw[1])
+    if phases.shape[2] < ho + 1 or phases.shape[3] < wo + 1:
+        raise ValueError(f"stem_conv3x3_s2: planes {tuple(phases.shape[2:])}"
+                         f" too small for output {(ho, wo)}")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"stem_conv3x3_s2: bias shape {tuple(bias.shape)}, "
+                         f"want ({cout},)")
+    return ho, wo
+
+
+def _kernel_check(kernel: torch.Tensor) -> Tuple[int, int]:
+    if kernel.dim() != 4 or tuple(kernel.shape[2:]) != (3, 3):
+        raise ValueError(f"stem_conv3x3_s2: kernel must be OIHW "
+                         f"(cout, cin, 3, 3), got {tuple(kernel.shape)}")
+    return int(kernel.shape[1]), int(kernel.shape[0])
+
+
+def stem_weights(kernel: torch.Tensor, bias, dtype: torch.dtype,
+                 device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's weights as its C entry reads them: the (9*cin, cout) f32
+    taps-major matrix, rows in (i, j, c) order, values rounded to
+    ``dtype`` first (the TPU kernel's ``km.astype(phases.dtype)``), and the
+    f32 bias (zeros for None), contiguous on ``device``."""
+    cin, cout = _kernel_check(kernel)
+    km = (kernel.to(device, dtype).float().permute(2, 3, 1, 0)
+          .reshape(9 * cin, cout).contiguous())
+    b = (torch.zeros(cout, dtype=torch.float32, device=device)
+         if bias is None else bias.to(device, torch.float32).contiguous())
+    return km, b
+
+
+def _stem_plain(phases: torch.Tensor, km: torch.Tensor, b: torch.Tensor,
+                out_hw, relu: bool) -> torch.Tensor:
+    """The (N, 9*cin, Ho, Wo) tap stack from unit-stride slices of the
+    planes, one f32 einsum with ``km``; + f32 bias, optional ReLU, one
+    rounding to the phases dtype."""
+    cin, (ho, wo) = km.shape[0] // 9, out_hw
+    pf = phases.float()
+    taps = torch.stack([
+        pf[:, ((i & 1) * 2 + (j & 1)) * cin + c,
+           i // 2:i // 2 + ho, j // 2:j // 2 + wo]
+        for i in range(3) for j in range(3) for c in range(cin)], dim=1)
+    y = torch.einsum("nkhw,ko->nohw", taps, km) + b[:, None, None]
+    if relu:
+        y = torch.relu(y)
+    return y.to(phases.dtype)
+
+
+def stem_conv3x3_s2_plain(phases: torch.Tensor, kernel: torch.Tensor,
+                          bias, out_hw, *, relu: bool = False
+                          ) -> torch.Tensor:
+    """:func:`stem_conv3x3_s2` in plain PyTorch: the (N, 9*cin, Ho, Wo)
+    tap stack from unit-stride slices of the planes, then one f32 einsum
+    with the (9*cin, cout) weight matrix; + f32 bias, optional ReLU, one
+    rounding to the phases dtype."""
+    cin, cout = _kernel_check(kernel)
+    out_hw = _stem_check(phases, cin, cout, bias, out_hw)
+    km, b = stem_weights(kernel, bias, phases.dtype, phases.device)
+    return _stem_plain(phases, km, b, out_hw, relu)
+
+
+def stem_conv3x3_s2(phases: torch.Tensor, kernel: torch.Tensor, bias,
+                    out_hw, *, relu: bool = False) -> torch.Tensor:
+    """3x3 / stride-2 / pad-1 conv of an image given as its stride-2 phase
+    planes (``dcfp_tpu_torch.ops.stem.extract_stem_phases``, stacked over
+    the batch).
+
+    phases: (N, 4*cin, Hp, Wp) f32/bf16, cin <= 4; kernel: OIHW
+    (cout, cin, 3, 3); bias: (cout,) or None, read in f32; out_hw:
+    ((H+1)//2, (W+1)//2).  Returns (N, cout, Ho, Wo) in the phases dtype;
+    on CUDA it is channels_last in memory.  One launch for the batch."""
+    cin, cout = _kernel_check(kernel)
+    _stem_check(phases, cin, cout, bias, out_hw)
+    km, b = stem_weights(kernel, bias, phases.dtype, phases.device)
+    return stem_conv3x3_s2_prepared(phases, km, b, out_hw, relu=relu)
+
+
+def stem_conv3x3_s2_prepared(phases: torch.Tensor, km: torch.Tensor,
+                             b: torch.Tensor, out_hw, *,
+                             relu: bool = False) -> torch.Tensor:
+    """:func:`stem_conv3x3_s2` on the weights of :func:`stem_weights`,
+    made once for many calls (the ``phases`` deploy body does so).  The
+    plain version for CPU phases, one launch of K2 for CUDA phases."""
+    cin, cout = int(km.shape[0]) // 9, int(km.shape[1])
+    if (km.shape[0] != 9 * cin or b.shape != (cout,)
+            or km.dtype != torch.float32 or b.dtype != torch.float32
+            or km.device != phases.device or b.device != phases.device
+            or not (km.is_contiguous() and b.is_contiguous())):
+        raise ValueError(f"stem_conv3x3_s2: prepared weights must be "
+                         f"contiguous f32 (9*cin, cout) and (cout,) on "
+                         f"{phases.device}, got {tuple(km.shape)} "
+                         f"{km.dtype} and {tuple(b.shape)} {b.dtype}")
+    ho, wo = _stem_check(phases, cin, cout, b, out_hw)
+    if phases.device.type == "cpu":
+        return _stem_plain(phases, km, b, (ho, wo), relu)
+    if phases.device.type != "cuda":
+        raise ValueError(f"stem_conv3x3_s2: no kernel for device "
+                         f"{phases.device}")
+    if not phases.is_contiguous():
+        raise ValueError("stem_conv3x3_s2: phases must be contiguous")
+    out = torch.empty((phases.shape[0], cout, ho, wo), dtype=phases.dtype,
+                      device=phases.device, memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    fn = c_entry("stem_conv", "dcfp_stem_conv3x3_s2",
+                 [_VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _CI,
+                  _VP, _VP])
+    run_c_entry(fn, phases.device, "stem_conv3x3_s2", phases.data_ptr(),
+                int(phases.dtype == torch.bfloat16), int(phases.shape[0]),
+                cin, cout, int(phases.shape[2]), int(phases.shape[3]), ho, wo,
+                km.data_ptr(), b.data_ptr(), int(bool(relu)), out.data_ptr())
     return out
