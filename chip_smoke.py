@@ -8,7 +8,8 @@ exits non-zero without them.  Phases, each of which raises on failure:
 1. device: name, power limit, torch/CUDA versions;
 2. build: compile every kernel of the port from ``dcfp_tpu_torch/csrc/``
    with nvcc, one process per source, in parallel: resize-argmax (K1),
-   the stem conv (K2) and the fused bottleneck (K3);
+   the stem conv (K2), the fused bottleneck (K3), the fused ASPP
+   branches (K4), the tiled matmul (K5) and the int8 chain (K6);
 3. each kernel against its plain PyTorch version on the card: K1 over
    the deploy shape and the JAX package's kernel test cases; K2 over
    tests/test_stem.py's shapes, batch 2 and the deploy shape, and against
@@ -23,9 +24,20 @@ exits non-zero without them.  Phases, each of which raises on failure:
    4 requests from NCHW images and the same 4 from their phase planes
    (stem conv through K2), checks K1 (and K2) ran once per request, and
    times both paths and the unpruned model with the ``totrt.py`` protocol;
-6. one JSON line with every ported kernel: launches on its path, its
+6. the probes, after serving (every bf16 cuDNN yardstick autotuned):
+   K3 at the pruned layer3/layer4 shapes; the int8 probe's stage A (K5 at
+   1024^3, a ragged M and a skinny M, int8 exact and bf16 within
+   1e-5 x (|a| @ |b|), beside ``torch._int_mm`` and bf16 ``matmul``) and
+   stage B (K6 bit-equal to its plain version at the probe's shape and
+   the pruned layer3's, and over an 8-block chain with 8 launches, beside
+   the bf16 cuDNN chain); the ASPP probe's stages N and B (K4 within 1
+   bf16 ulp + 1e-5 x sum|x w| of the plain f32 result on 40x61x256 and on
+   the served pruned R101's layer4 output with its own ASPP weights,
+   beside the three cuDNN branches); K6 and K4 also on one shape off
+   every tile of theirs;
+7. one JSON line with every ported kernel: launches on its path, its
    check, its time beside its bound, plain and library times;
-7. last line: ``{"ok": true, "device": {...}}``.
+8. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -39,11 +51,12 @@ import torch
 import torch.nn.functional as F
 
 from dcfp_tpu_torch.bridge import params_from_numpy, params_to_numpy
-from dcfp_tpu_torch.engine.deploy import (benchmark, make_inference_fn,
+from dcfp_tpu_torch.engine.deploy import (benchmark, fold_batchnorm,
+                                          make_inference_fn,
                                           make_split_inference_fn)
-from dcfp_tpu_torch.graph.apply import init_graph
+from dcfp_tpu_torch.graph.apply import graph_apply, init_graph
 from dcfp_tpu_torch.models.registry import build_model
-from dcfp_tpu_torch.ops import bottleneck, kernels
+from dcfp_tpu_torch.ops import aspp, bottleneck, int8, kernels
 from dcfp_tpu_torch.ops.resize import resize_bilinear
 from dcfp_tpu_torch.ops.stem import extract_stem_phases
 from dcfp_tpu_torch.prune.eic import prunable_bn_names
@@ -54,6 +67,7 @@ from dcfp_tpu_torch.prune.search import prune_to_flops
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense, tensor cores
+INT8_OPS_PER_S = 1979e12  # dense, tensor cores
 
 MAIN_SHAPE = (1, 19, 129, 257)  # low-res logits of the deploy model
 MAIN_OUT = (1025, 2049)
@@ -79,6 +93,28 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps=20, iters=10):
+    """Device time per call of a short ``fn``: ``reps`` calls captured in
+    a CUDA graph, replayed ``iters`` times between CUDA events, so the
+    host's per-call overhead (Python, checks, launch) is not timed."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 # ---------------------------------------------------------------------------
@@ -248,19 +284,26 @@ def bound(n_bytes, n_ops, ops_per_s):
             "bytes": n_bytes, "ops": n_ops}
 
 
-def bf16_ulp_check(got, ref, tag):
-    """Every bf16 value of ``got`` within 1 bf16 ulp of the f32 ``ref``,
-    plus 1e-6 x max|ref| for values near 0 (there two f32 sums in
-    different orders differ by more than a bf16 ulp of the tiny result).
-    Returns max|got - ref|."""
+def ulp_misses(got, ref, slack=None):
+    """How many bf16 values of ``got`` lie more than 1 bf16 ulp + ``slack``
+    from the f32 ``ref``.  ``slack`` (a number or a tensor like ``ref``)
+    defaults to 1e-6 x max|ref|, for values near 0: there two f32 sums in
+    different orders differ by more than a bf16 ulp of the tiny result."""
     g, ref = got.float(), ref.float()
+    if slack is None:
+        slack = 1e-6 * float(ref.abs().max())
     mag = torch.maximum(g.abs(), ref.abs()).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    err = (g - ref).abs()
-    bad = int((err > ulp + 1e-6 * float(ref.abs().max())).sum())
+    return int(((g - ref).abs() > ulp + slack).sum())
+
+
+def bf16_ulp_check(got, ref, tag):
+    """Every bf16 value of ``got`` within 1 bf16 ulp (+1e-6 x max|ref|)
+    of the f32 ``ref`` (:func:`ulp_misses`).  Returns max|got - ref|."""
+    bad = ulp_misses(got, ref)
     if bad:
         raise AssertionError(f"{tag}: {bad} values more than 1 bf16 ulp off")
-    return float(err.max())
+    return float((got.float() - ref.float()).abs().max())
 
 
 def f32_rel_check(got, ref, tag, rel=1e-5):
@@ -573,6 +616,390 @@ def time_k3(name, x, args, d):
 
 
 # ---------------------------------------------------------------------------
+# 3d. the int8 probe (tools/exp_int8.py): K5 (stage A) and K6 (stage B)
+# ---------------------------------------------------------------------------
+
+# (M, K, N): the probe's 1024^3, M off the TPU's 512-row tile with N and
+# K off the kernel's 128 x 64 tiles, and a skinny M
+K5_CASES = [(1024, 1024, 1024), (1000, 1008, 200), (64, 4096, 1024)]
+
+
+def _k5_inputs(m, k, n, dtype, gen):
+    if dtype == torch.int8:
+        return (torch.randint(-128, 128, (m, k), device="cuda", generator=gen,
+                              dtype=torch.int8),
+                torch.randint(-128, 128, (k, n), device="cuda", generator=gen,
+                              dtype=torch.int8))
+    return (torch.randn((m, k), device="cuda", generator=gen).to(dtype),
+            torch.randn((k, n), device="cuda", generator=gen).to(dtype))
+
+
+def phase_k5():
+    """K5's path, the probe's stage A: every case in int8 and bf16 through
+    ``int8.tiled_mm`` (counts set to 0 before, read after); then int8
+    equal to the plain version (exact), bf16 within 1e-5 x (|a| @ |b|)
+    of the plain f32 product; and the 1024^3 timings."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(c, dt) for c in K5_CASES for dt in (torch.int8, torch.bfloat16)]
+    inputs = [_k5_inputs(*c, dt, gen) for c, dt in cases]
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    outs = [int8.tiled_mm(a, b) for a, b in inputs]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["tiled_mm"] != len(cases):
+        raise AssertionError(f"K5 path: {launches}, want one launch a case")
+    check = {}
+    for ((m, k, n), dt), (a, b), got in zip(cases, inputs, outs):
+        tag = f"{m}x{k}x{n} {str(dt)[6:]}"
+        ref = int8.tiled_mm_plain(a, b)
+        if got.shape != (m, n) or got.dtype != ref.dtype:
+            raise AssertionError(f"K5 {tag}: bad output {got.shape}")
+        if dt == torch.int8:
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K5 {tag}: int8 product not exact")
+            err = 0.0
+        else:
+            mag = a.float().abs() @ b.float().abs()
+            diff = (got - ref).abs()
+            bad = int((diff > 1e-5 * mag).sum())
+            if bad:
+                raise AssertionError(f"K5 {tag}: {bad} values beyond "
+                                     "1e-5 x (|a| @ |b|)")
+            err = float(diff.max())
+        check[tag] = err
+        log(f"[k5] {tag}: max_abs_err {err:.3g}")
+    m, k, n = K5_CASES[0]
+    times = {str(dt)[6:]: time_k5(*_k5_inputs(m, k, n, dt, gen))
+             for dt in (torch.int8, torch.bfloat16)}
+    return launches, check, times
+
+
+def time_k5(a, b):
+    """K5 beside its plain version, the one-call library product and its
+    bound: ``torch._int_mm`` (cuBLASLt, int32 out) for int8, bf16
+    ``torch.matmul`` (whose output is bf16, not K5's f32) for bf16."""
+    (m, k), n = a.shape, b.shape[1]
+    # a call is shorter than the host's time to issue it, so each is
+    # timed inside a CUDA graph (graph_ms); cuda_ms would time the host
+    ms = graph_ms(lambda: int8.tiled_mm(a, b))
+    host_ms = cuda_ms(lambda: int8.tiled_mm(a, b), 200)
+    plain_ms = graph_ms(lambda: int8.tiled_mm_plain(a, b))
+    if a.dtype == torch.int8:
+        library_ms = graph_ms(lambda: torch._int_mm(a, b))
+        rate, out_bytes, lib = INT8_OPS_PER_S, 4, "torch._int_mm"
+    else:
+        library_ms = graph_ms(lambda: torch.matmul(a, b))
+        rate, out_bytes, lib = BF16_OPS_PER_S, 4, "torch.matmul, bf16 out"
+    es = a.element_size()
+    bd = bound((m * k + k * n) * es + m * n * out_bytes, 2 * m * n * k, rate)
+    log(f"[k5] {m}x{k}x{n} {str(a.dtype)[6:]}: kernel {ms:.4f} ms "
+        f"({2 * m * n * k / ms / 1e9:.1f} T{'OP' if es == 1 else 'FLOP'}/s; "
+        f"{host_ms:.4f} ms a call issued from Python), "
+        f"plain {plain_ms:.4f} ms, library ({lib}) {library_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+        f"({bd['bytes']} B, {bd['ops']} ops)")
+    return {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
+
+
+# the probe's stage-B shape (exp_int8.py:221-229: H0 128, W 256,
+# 1024 -> 256 -> 1024, scales 2e-4) and the pruned R101's layer3 blocks
+# (129 x 257, 1024 -> 128 -> 1024); 129 is no multiple of the TPU's row tile
+K6_SHAPES = {"probe": (128, 256, 1024, 256, 1024),
+             "layer3": (129, 257, 1024, 128, 1024)}
+K6_SCALES = (2e-4, 2e-4, 2e-4)
+# At those shapes the probe's scales leave y2, and so the output, all
+# zeros (|s2 * acc2| < 0.5), which any kernel would match; these scales
+# put every requant to work (y1 and y2 spread over 0..127, the block
+# chain's carry over -64..63 through all 8 blocks).
+K6_CHECK_SCALES = (4e-3, 2e-3, 1e-3)
+K6_BLOCKS = 8
+# off every tile of the kernel: H0 and W ragged, Cin, Cm and Cout not
+# multiples of its 64-byte steps or 128-channel passes
+K6_ODD = (7, 45, 48, 48, 40)
+
+
+def _k6_inputs(h0, w, cin, cm, cout, seed):
+    """The probe's draws (exp_int8.py:223-228), numpy from ``seed``:
+    x8 with its D random halo rows on each side, int8 weights."""
+    rng = np.random.default_rng(seed)
+    hp = h0 + 2 * int8.D
+    arrs = (rng.integers(-64, 64, (hp, w, cin)),
+            rng.integers(-16, 16, (cin, cm)),
+            rng.integers(-16, 16, (9, cm, cm)),
+            rng.integers(-16, 16, (cm, cout)))
+    return [torch.from_numpy(a.astype(np.int8)).cuda() for a in arrs]
+
+
+def _bit_equal(got, ref, tag):
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{tag}: {got.shape} {got.dtype}, want "
+                             f"{ref.shape} {ref.dtype}")
+    view = torch.int16 if got.dtype == torch.bfloat16 else got.dtype
+    if not torch.equal(got.view(view), ref.view(view)):
+        n = int((got.view(view) != ref.view(view)).sum())
+        raise AssertionError(f"{tag}: {n} values differ from the plain "
+                             "version")
+
+
+def phase_k6():
+    """K6's path, the probe's stage B: ``int8.chain_int8`` at the probe's
+    shape with its scales, then at the probe's and the pruned layer3's
+    shapes with scales that exercise every requant, then
+    ``chain_int8_blocks`` with 8 blocks on the probe's inputs (counts set
+    to 0 before, read after); each output bit-equal to its plain version,
+    the block chain with exactly 8 launches; then timings per block
+    beside the bf16 cuDNN chain."""
+    inputs = {name: _k6_inputs(*shape, seed)
+              for seed, (name, shape) in enumerate(K6_SHAPES.items(), 1)}
+    runs = [("probe", "probe scales", K6_SCALES),
+            ("probe", "check scales", K6_CHECK_SCALES),
+            ("layer3", "check scales", K6_CHECK_SCALES)]
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    outs = [int8.chain_int8(*inputs[name], sc) for name, _, sc in runs]
+    before = kernels.LAUNCHES["chain_int8"]
+    carry = int8.chain_int8_blocks(*inputs["probe"], K6_CHECK_SCALES,
+                                   K6_BLOCKS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["chain_int8"] - before != K6_BLOCKS:
+        raise AssertionError(f"K6 block chain: "
+                             f"{launches['chain_int8'] - before} launches, "
+                             f"want {K6_BLOCKS}")
+    check = {}
+    for (name, what, sc), got in zip(runs, outs):
+        args = inputs[name]
+        ref = int8.chain_int8_plain(*args, sc)
+        _bit_equal(got, ref, f"K6 {name} {what}")
+        nz = float((ref != 0).float().mean())
+        if sc is K6_CHECK_SCALES and nz < 0.5:
+            raise AssertionError(f"K6 {name}: the check data leave "
+                                 f"{1 - nz:.2f} of the output zero")
+        check[f"{name}, {what}"] = {"bit_equal": True, "nonzero_share": nz}
+        log(f"[k6] {name} {tuple(args[0].shape)} -> {tuple(ref.shape)}, "
+            f"{what} {sc}: bit-equal to the plain version; max|out| "
+            f"{float(ref.float().abs().max()):.4g}, nonzero {nz:.4f}")
+    ref = int8.chain_int8_blocks_plain(*inputs["probe"], K6_CHECK_SCALES,
+                                       K6_BLOCKS)
+    _bit_equal(carry, ref, f"K6 {K6_BLOCKS}-block chain")
+    check["blocks"] = {"blocks": K6_BLOCKS, "bit_equal": True,
+                       "distinct_values": int(torch.unique(ref).numel())}
+    log(f"[k6] {K6_BLOCKS}-block chain on the probe's inputs, check scales:"
+        f" the int8 carry bit-equal to the plain loop "
+        f"({check['blocks']['distinct_values']} distinct values)")
+    odd = _k6_inputs(*K6_ODD, 3)
+    ref = int8.chain_int8_plain(*odd, K6_CHECK_SCALES)
+    _bit_equal(int8.chain_int8(*odd, K6_CHECK_SCALES), ref, "K6 odd shape")
+    check["odd shape"] = {"shape": list(K6_ODD), "bit_equal": True,
+                          "nonzero_share": float((ref != 0).float().mean())}
+    log(f"[k6] odd shape {K6_ODD} (H0, W, Cin, Cm, Cout): bit-equal, "
+        f"nonzero {check['odd shape']['nonzero_share']:.4f}")
+    times = {name: time_k6(name, args) for name, args in inputs.items()}
+    return launches, check, times
+
+
+def time_k6(name, args):
+    """One block: K6 on weights prepared once (as the block chain runs
+    it), the wrapper (with the weight prep), the plain version and the
+    bf16 cuDNN chain (``int8.chain_bf16``, autotuned) at the same shape
+    with the probe's bf16 magnitudes; and the bound."""
+    x8, w1, w2, w3 = args
+    hp, w, cin = x8.shape
+    cm, cout = w1.shape[1], w3.shape[1]
+    h0, d = hp - 2 * int8.D, int8.D
+    prepped = int8.chain_int8_weights(w1, w2, w3)
+    ms = cuda_ms(lambda: int8.chain_int8_launch(x8, prepped, K6_SCALES), 20)
+    wrapper_ms = cuda_ms(lambda: int8.chain_int8(x8, w1, w2, w3, K6_SCALES),
+                         20)
+    plain_ms = cuda_ms(
+        lambda: int8.chain_int8_plain(x8, w1, w2, w3, K6_SCALES), 5, 1)
+    xb = (x8.float() * 0.01).to(torch.bfloat16)
+    ks = [(t.float() * 2e-2).to(torch.bfloat16) for t in (w1, w2, w3)]
+    k1 = ks[0].t().reshape(cm, cin, 1, 1)
+    k2 = ks[1].reshape(3, 3, cm, cm).permute(3, 2, 0, 1)
+    k3 = ks[2].t().reshape(cout, cm, 1, 1)
+    k1, k2, k3 = (k.contiguous(memory_format=torch.channels_last)
+                  for k in (k1, k2, k3))
+    with autotuned():
+        library_ms = cuda_ms(lambda: int8.chain_bf16(xb, k1, k2, k3), 50)
+    # bytes: x, the weights and the output once; operations: conv1 on every
+    # input row (the halo rows feed the 3x3), the 3x3's taps that fall
+    # inside the image's columns, and conv3
+    taps = sum(w - abs(kx - 1) * d for kx in range(3)) * 3 * h0
+    n_ops = 2 * (hp * w * cin * cm + taps * cm * cm + h0 * w * cm * cout)
+    n_bytes = x8.numel() + w1.numel() + w2.numel() + w3.numel() \
+        + h0 * w * cout * 2
+    bd = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    log(f"[k6] {name} {tuple(x8.shape)} {cin}->{cm}->{cout}: kernel "
+        f"{ms:.4f} ms ({n_ops / ms / 1e9:.1f} TOP/s; wrapper with weight "
+        f"prep {wrapper_ms:.4f}), plain {plain_ms:.4f} ms, library (bf16 "
+        f"cuDNN chain) {library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by"
+        f" {bd['bound_by']} ({bd['bytes']} B, {bd['ops']} ops)")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
+
+
+# ---------------------------------------------------------------------------
+# 3e. the ASPP probe (tools/exp_aspp.py): K4, stages N and B
+# ---------------------------------------------------------------------------
+
+K4_STAGE_N = (40, 61, 256, 128)  # exp_aspp.py stage_n: H, W, Cin, Cout
+K4_ODD = (23, 37, 200, 72)  # Cin off the 32-channel step, Cout off 128
+
+
+def aspp_case(graph, pparams, pstate, dev_params, image):
+    """The served pruned R101's ASPP input and weights: the layer4 output
+    of one request (the interpreter run on the folded graph's prefix that
+    ends at the ASPP's input, with the served params), and the folded
+    bf16 kernels of ``aspp.aspp{2,3,4}.atrous_conv``."""
+    names = [f"aspp.aspp{i}.atrous_conv" for i in (2, 3, 4)]
+    dil = tuple(graph.node(n).attrs["dilation"] for n in names)
+    if dil != aspp.DILATIONS:
+        raise AssertionError(f"ASPP dilations {dil}, want {aspp.DILATIONS}")
+    src = graph.node(names[0]).inputs[0]
+    fgraph, _, fstate = fold_batchnorm(graph, pparams, pstate)
+    keep, todo = set(), [src]
+    while todo:
+        n = todo.pop()
+        if n not in keep:
+            keep.add(n)
+            todo.extend(fgraph.node(n).inputs)
+    fgraph.nodes = {k: v for k, v in fgraph.nodes.items() if k in keep}
+    fgraph.outputs = [src]
+    state = {k: {kk: v.cuda() for kk, v in d.items()}
+             for k, d in fstate.items() if k in keep}
+    x = image.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        outs, _ = graph_apply(fgraph, dev_params, state,
+                              {fgraph.inputs[0]: x}, channels_first=True)
+    act = outs[src]
+    kern = [dev_params[n]["kernel"] for n in names]
+    log(f"[serve] ASPP input of request 0: {src} {tuple(act.shape)} "
+        f"{act.dtype}, channels_last "
+        f"{act.is_contiguous(memory_format=torch.channels_last)}; "
+        f"branches {[tuple(k.shape) for k in kern]} at dilations {dil}")
+    return {"source": src, "act": act, "kernels": kern}
+
+
+def _aspp_ref_check(got, x, wts, tag):
+    """K4 within 1 bf16 ulp of the plain version's f32 result plus
+    1e-5 x the sum of the magnitudes of the products (the plain version
+    on |x| and |w|), K5's bf16 rule: with 9 x Cin products per output the
+    f32 sums of the kernel (tensor cores) and of the reference (cuDNN,
+    another order) each drift by more than 1 bf16 ulp of a result near
+    0.  Returns (max|got - ref|, values beyond the 1-ulp rule alone)."""
+    ref = aspp.aspp_fused_plain(x.float(), wts.float())
+    if got.shape != ref.shape or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{tag}: bad output {got.shape} {got.dtype}")
+    mag = aspp.aspp_fused_plain(x.float().abs(), wts.float().abs())
+    bad = ulp_misses(got, ref, 1e-5 * mag)
+    if bad:
+        raise AssertionError(f"{tag}: {bad} values beyond 1 bf16 ulp + "
+                             "1e-5 x sum|x w|")
+    return float((got.float() - ref).abs().max()), ulp_misses(got, ref)
+
+
+def phase_k4(case):
+    """K4's path, the probe's stages N and B: ``aspp.aspp_fused`` on stage
+    N's seeded 40x61x256 -> 3x128 and on the served pruned R101's ASPP
+    input with its own folded weights (counts set to 0 before, read
+    after); each within 1 bf16 ulp of the plain f32 result; stage B also
+    beside the cuDNN branches (printed) and timed."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h, w, cin, cout = K4_STAGE_N
+    xn = (torch.randn((h, w, cin), device="cuda", generator=gen) * 0.5).to(
+        torch.bfloat16)
+    wn = (torch.randn((27, cin, cout), device="cuda", generator=gen)
+          * 0.02).to(torch.bfloat16)
+    xb = case["act"][0].permute(1, 2, 0)  # (H, W, C) without a copy
+    if not xb.is_contiguous():
+        raise AssertionError("layer4 activation is not channels_last")
+    wb = aspp.aspp_weights(*case["kernels"])
+    log(f"[k4] stage B shape, read from the served graph: "
+        f"{tuple(xb.shape)} -> 3x{wb.shape[2]} (input {case['source']} of "
+        f"request 0; weights aspp.aspp2-4.atrous_conv)")
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    got_n = aspp.aspp_fused(xn, wn)
+    got_b = aspp.aspp_fused(xb, wb)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["aspp_fused"] != 2:
+        raise AssertionError(f"K4 path: {launches}, want 2 launches")
+    err_n, miss_n = _aspp_ref_check(got_n, xn, wn, "K4 stage N")
+    err_b, miss_b = _aspp_ref_check(got_b, xb, wb, "K4 stage B")
+    kern_cl = [k.contiguous(memory_format=torch.channels_last)
+               for k in case["kernels"]]
+    with autotuned():
+        lib = aspp.aspp_convs(xb, kern_cl)
+    ldiff = float((got_b.float() - lib.float()).abs().max())
+    lib_miss = ulp_misses(lib, aspp.aspp_fused_plain(xb.float(), wb.float()))
+    log(f"[k4] stage N {tuple(xn.shape)}: max_abs_err {err_n:.3g}, "
+        f"{miss_n} values beyond 1 bf16 ulp alone; stage B "
+        f"{tuple(xb.shape)}: max_abs_err {err_b:.3g} (max|out| "
+        f"{float(got_b.float().abs().max()):.4g}), {miss_b} of "
+        f"{got_b.numel()} values beyond 1 bf16 ulp alone (the cuDNN "
+        f"branches: {lib_miss}); vs the cuDNN branches max|diff| {ldiff:.3g}")
+    h, w, cin, cout = K4_ODD
+    xo = (torch.randn((h, w, cin), device="cuda", generator=gen) * 0.5).to(
+        torch.bfloat16)
+    wo = (torch.randn((27, cin, cout), device="cuda", generator=gen)
+          * 0.02).to(torch.bfloat16)
+    err_o, miss_o = _aspp_ref_check(aspp.aspp_fused(xo, wo), xo, wo,
+                                    "K4 odd shape")
+    log(f"[k4] odd shape {K4_ODD} (H, W, Cin, Cout): max_abs_err "
+        f"{err_o:.3g}, {miss_o} values beyond 1 bf16 ulp alone")
+    check = {"stage_n_max_abs_err": err_n, "stage_b_max_abs_err": err_b,
+             "odd_shape_max_abs_err": err_o,
+             "stage_n_beyond_1_ulp": miss_n, "stage_b_beyond_1_ulp": miss_b,
+             "cudnn_branches_beyond_1_ulp": lib_miss,
+             "stage_b_shape": list(xb.shape) + [int(wb.shape[2])],
+             "stage_b_input": f"layer4 output of served request 0 "
+                              f"({case['source']})",
+             "cudnn_branches_max_diff": ldiff}
+    del lib
+    return launches, check, time_k4(xb, wb, kern_cl)
+
+
+def time_k4(x, wts, kern_cl):
+    """Stage B: K4 on weights prepared once, the wrapper (with the weight
+    transpose), the plain version and the three autotuned cuDNN branches
+    with ReLU and the concat; and the bound."""
+    h, w, cin = x.shape
+    cout = wts.shape[2]
+    wt = aspp.aspp_kernel_weights(wts)
+    ms = cuda_ms(lambda: aspp.aspp_fused_launch(x, wt), 10, 2)
+    wrapper_ms = cuda_ms(lambda: aspp.aspp_fused(x, wts), 10, 2)
+    plain_ms = cuda_ms(lambda: aspp.aspp_fused_plain(x, wts), 3, 1)
+    with autotuned():
+        library_ms = cuda_ms(lambda: aspp.aspp_convs(x, kern_cl), 20)
+    # operations: the taps that fall inside the image (the others add
+    # zeros); all 27 taps would be `full`
+    inside = sum(max(h - abs(ky - 1) * d, 0) * max(w - abs(kx - 1) * d, 0)
+                 for d in aspp.DILATIONS for ky in range(3) for kx in range(3))
+    n_ops = 2 * inside * cin * cout
+    full = 2 * h * w * 27 * cin * cout
+    n_bytes = (x.numel() + wts.numel() + h * w * 3 * cout) * 2
+    bd = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[k4] stage B {tuple(x.shape)} -> 3x{cout} bf16: kernel {ms:.4f} ms "
+        f"({full / ms / 1e9:.1f} TFLOP/s counting all taps; wrapper with "
+        f"weight prep {wrapper_ms:.4f}), plain {plain_ms:.4f} ms, library "
+        f"(3 cuDNN convs, ReLU, cat) {library_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes']} B, "
+        f"{bd['ops']} ops in the image of {full})")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
+
+
+# ---------------------------------------------------------------------------
 # 4. forward on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -761,6 +1188,8 @@ def phase_serve():
     # the two paths in turns: nchw, phases, phases (above), nchw
     pruned_again = benchmark(lambda img: fn(dev_params, img), requests[0],
                              warmup=10, iters=50, blocks=3)
+    k4_case = aspp_case(result.graph, pparams, pstate, dev_params,
+                        requests[0])
     del fn, dev_params
     ufn, udev = make_inference_fn(graph, params, state, **kw)
     unpruned = benchmark(lambda img: ufn(udev, img), requests[0],
@@ -787,7 +1216,7 @@ def phase_serve():
         "max_memory_allocated_bytes": peak,
     }
     log("[serve] " + json.dumps(summary))
-    return launches, serve_check, phases
+    return launches, serve_check, phases, k4_case
 
 
 def phase_serve_phases(graph, pparams, pstate, images, nchw_answers):
@@ -862,11 +1291,15 @@ def main():
     k2_cases = phase_k2()
     k3_cases = phase_k3()
     phase_forward()
-    launches, serve_check, phases = phase_serve()
+    launches, serve_check, phases, k4_case = phase_serve()
     # the bf16 cuDNN yardsticks after serving: they make their plans
     # autotuned, as serving does, but the serving run comes first
     k2_time = time_k2()
     k3_launches, k3_check, k3_time = phase_k3_probe()
+    k5_launches, k5_check, k5_time = phase_k5()
+    k6_launches, k6_check, k6_time = phase_k6()
+    k4_launches, k4_check, k4_time = phase_k4(k4_case)
+    del k4_case
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()
@@ -908,6 +1341,36 @@ def main():
                     "path": "probe at the pruned R101 layer3 and layer4 "
                             "shapes"},
              **k3_main, layer4=k3_time["layer4"]),
+        dict(name="tiled_mm", route="cuda",
+             source="dcfp_tpu_torch/csrc/int8_mm.cu",
+             replaces="tools/exp_int8.py:59",
+             launches=k5_launches["tiled_mm"],
+             max_abs_err=max(k5_check.values()),
+             check={"cases": k5_check,
+                    "rule": "int8 equal to the exact plain product; bf16 "
+                            "within 1e-5 x (|a| @ |b|) of the plain f32 "
+                            "product",
+                    "path": "the probe's stage A, 1024^3, 1000x1008x200 and "
+                            "64x4096x1024, int8 and bf16"},
+             **k5_time["int8"], bf16=k5_time["bfloat16"]),
+        dict(name="chain_int8", route="cuda",
+             source="dcfp_tpu_torch/csrc/int8_chain.cu",
+             replaces="tools/exp_int8.py:176",
+             launches=k6_launches["chain_int8"], max_abs_err=0.0,
+             check={**k6_check, "rule": "bit-equal to the plain version",
+                    "path": "the probe's stage B: the probe's and the pruned "
+                            "layer3's shapes, then an 8-block chain"},
+             **k6_time["probe"], layer3=k6_time["layer3"]),
+        dict(name="aspp_fused", route="cuda",
+             source="dcfp_tpu_torch/csrc/aspp.cu",
+             replaces="tools/exp_aspp.py:167",
+             launches=k4_launches["aspp_fused"],
+             max_abs_err=max(k4_check["stage_n_max_abs_err"],
+                             k4_check["stage_b_max_abs_err"]),
+             check={**k4_check,
+                    "rule": "within 1 bf16 ulp + 1e-5 x sum|x w| of the "
+                            "plain f32 result"},
+             **k4_time),
     ]}
     log(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

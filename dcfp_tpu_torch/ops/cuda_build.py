@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled at
 first use with ``nvcc`` for Hopper (``sm_90a``) into
 ``dcfp_tpu_torch/_build/`` and loaded with ``ctypes``.  The library's file
-name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at
-import time, and there is no fallback: a missing ``nvcc`` or a failed
-build raises.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  Nothing here runs at import time, and there is
+no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -53,9 +53,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -15,8 +15,10 @@ stride-2 phase planes (port of ``dcfp_tpu/ops/pallas_kernels.py``
 ``dcfp_tpu_torch/csrc/stem_conv.cu``); the first op of the ``phases``
 deploy body.
 
-K3 ``fused_bottleneck`` lives in ``dcfp_tpu_torch.ops.bottleneck`` and
-counts its launches here too.
+K3 ``fused_bottleneck`` lives in ``dcfp_tpu_torch.ops.bottleneck``, the
+int8 probe's K5 ``tiled_mm`` and K6 ``chain_int8`` in
+``dcfp_tpu_torch.ops.int8``, and the ASPP probe's K4 ``aspp_fused`` in
+``dcfp_tpu_torch.ops.aspp``; they count their launches here too.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU
 (the tests run there) and launches the kernel for a CUDA tensor, or
@@ -35,10 +37,12 @@ import torch
 
 from dcfp_tpu_torch.ops.resize import _interp_matrix, resize_bilinear
 
-LAUNCHES = {"resize_argmax": 0, "stem_conv3x3_s2": 0, "fused_bottleneck": 0}
+LAUNCHES = {"resize_argmax": 0, "stem_conv3x3_s2": 0, "fused_bottleneck": 0,
+            "tiled_mm": 0, "chain_int8": 0, "aspp_fused": 0}
 
 # csrc/<name>.cu of every kernel of the port
-SOURCES = ("resize_argmax", "stem_conv", "bottleneck")
+SOURCES = ("resize_argmax", "stem_conv", "bottleneck", "int8_mm",
+           "int8_chain", "aspp")
 
 MAX_CLASSES = 256  # labels are uint8
 
@@ -154,7 +158,8 @@ def run_c_entry(fn, device: torch.device, name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VP, _CI, _CL, _CF = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
 
 
 def _launch(z: torch.Tensor, out_hw: Tuple[int, int],

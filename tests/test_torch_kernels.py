@@ -93,3 +93,20 @@ def test_wrapper_rejects_bad_inputs():
             kernels.resize_argmax(torch.zeros(1, 4, 4, 3, dtype=dt), (8, 8))
     with pytest.raises(ValueError, match="rank"):
         kernels.resize_argmax(torch.zeros(4, 4, 3), (8, 8))
+
+
+def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch):
+    """The built library's name hashes its source and every shared header,
+    so editing either rebuilds it; the six sources all exist."""
+    from dcfp_tpu_torch.ops import cuda_build
+    for name in kernels.SOURCES:
+        assert (cuda_build.CSRC_DIR / f"{name}.cu").exists(), name
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = cuda_build._target("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = cuda_build._target("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert len({first, second, cuda_build._target("k")}) == 3
+    assert first.parent == cuda_build.BUILD_DIR
