@@ -27,14 +27,15 @@ exits non-zero without them.  Phases, each of which raises on failure:
 6. the probes, after serving (every bf16 cuDNN yardstick autotuned):
    K3 at the pruned layer3/layer4 shapes; the int8 probe's stage A (K5 at
    1024^3, a ragged M and a skinny M, int8 exact and bf16 within
-   1e-5 x (|a| @ |b|), beside ``torch._int_mm`` and bf16 ``matmul``) and
+   1e-5 x (|a| @ |b|), beside ``torch._int_mm``, bf16-out ``matmul`` and
+   f32-out ``torch.mm(..., out_dtype=torch.float32)``, K5's own function) and
    stage B (K6 bit-equal to its plain version at the probe's shape and
    the pruned layer3's, and over an 8-block chain with 8 launches, beside
    the bf16 cuDNN chain); the ASPP probe's stages N and B (K4 within 1
    bf16 ulp + 1e-5 x sum|x w| of the plain f32 result on 40x61x256 and on
    the served pruned R101's layer4 output with its own ASPP weights,
-   beside the three cuDNN branches); K6 and K4 also on one shape off
-   every tile of theirs;
+   beside the three cuDNN branches); K3, K5 (both B routes), K6 and K4
+   also on shapes off every tile of theirs;
 7. one JSON line with every ported kernel: launches on its path, its
    check, its time beside its bound, plain and library times;
 8. last line: ``{"ok": true, "device": {...}}``.
@@ -149,8 +150,10 @@ def phase_build():
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.2f} s")
         for line in b.log.splitlines():  # ptxas: registers, spills
-            if "Used" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"[build]   {line.split(chr(39))[1]}")  # mangled name
+            elif "Used" in line or "spill" in line:
+                log(f"[build]     {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +434,11 @@ K3_BF16_CASES = [(1, 12, 19, 256, 128, 2), (2, 13, 17, 256, 128, 2),
 # blocks (1024 -> 128 -> 1024, d 2) and layer4's (2048 -> 256, d 16)
 K3_DEPLOY = {"layer3": (1, 129, 257, 1024, 128, 2),
              "layer4": (1, 129, 257, 2048, 256, 16)}
+# off every tile of the wgmma path (64-row m-tiles, 128-channel passes,
+# 64-wide K boxes): cin and cm padded, a second conv3 pass with half its
+# channels past cin, ragged residue classes; cin 52 (no 16-byte runs)
+# and 200 (cp.async runs when channels_last)
+K3_ODD = [(1, 23, 29, 52, 40, 5), (2, 23, 29, 200, 72, 5)]
 
 
 def _bottleneck_inputs(n, h, w, cin, cm, gen, dtype, scales):
@@ -560,6 +568,17 @@ def phase_k3_probe():
         raise AssertionError(f"K3 probe: {launches} launches, want one per "
                              "shape")
     check, times = {}, {}
+    for n, h, w, cin, cm, d in K3_ODD:  # after the counted path
+        tag = f"odd ({n},{cin},{h},{w}) cm {cm} d {d} bf16"
+        x, args = _bottleneck_inputs(n, h, w, cin, cm, gen, torch.bfloat16,
+                                     (1.0, 0.05, 0.05, 0.05, 1.0))
+        got = _k3_both_layouts(x, args, d, tag)
+        mx, share = bf16_rule(
+            got, bottleneck.fused_bottleneck_plain(x, *args, dilation=d), tag)
+        check[tag] = {"max_abs_err": mx, "share_over_0.05": share,
+                      "tile": list(bottleneck._tile(h, w, d, cin, cm, 2))}
+        log(f"[k3] {tag}, tile {check[tag]['tile']}: max_abs_err {mx:.3g}, "
+            f"{100 * share:.4f}% > 0.05, contiguous == channels_last")
     for name, (x, args, d) in inputs.items():
         got = outs[name]
         if (got.shape != x.shape or got.dtype != x.dtype
@@ -581,6 +600,8 @@ def phase_k3_probe():
             f"max|diff| {mx:.3g}, {100 * share:.4f}% > 0.05; vs cuDNN chain "
             f"max|diff| {check[name]['cudnn_chain_max_diff']:.3g}, "
             f"{100 * check[name]['cudnn_chain_share_over_0.05']:.4f}% > 0.05")
+        check[name]["tile"] = list(bottleneck._tile(
+            x.shape[2], x.shape[3], d, x.shape[1], args[0].shape[0], 2))
         del ref, chain, cdiff
         times[name] = time_k3(name, x, args, d)
     return launches, check, times
@@ -590,10 +611,11 @@ def time_k3(name, x, args, d):
     n, cin, h, w = x.shape
     cm = args[0].shape[0]
     prepped = bottleneck.bottleneck_weights(*args, x.dtype, x.device)
+    # 30 launches after 5 (the card's clocks settle in the first few)
     ms = cuda_ms(lambda: bottleneck.fused_bottleneck_launch(
-        x, prepped, dilation=d), 10, warmup=2)
+        x, prepped, dilation=d), 30, warmup=5)
     wrapper_ms = cuda_ms(lambda: bottleneck.fused_bottleneck(
-        x, *args, dilation=d), 10, warmup=2)
+        x, *args, dilation=d), 30, warmup=5)
     plain_ms = cuda_ms(lambda: bottleneck.fused_bottleneck_plain(
         x, *args, dilation=d), 10, warmup=2)
     lib_args = [a.to(x.dtype).contiguous(memory_format=torch.channels_last)
@@ -622,6 +644,11 @@ def time_k3(name, x, args, d):
 # (M, K, N): the probe's 1024^3, M off the TPU's 512-row tile with N and
 # K off the kernel's 128 x 64 tiles, and a skinny M
 K5_CASES = [(1024, 1024, 1024), (1000, 1008, 200), (64, 4096, 1024)]
+# off every tile of the wgmma kernel (128 x 64 blocks, 128 bytes of K a
+# stage) and through both B routes: (M, K, N, dtype, b's byte offset from
+# a 16-byte boundary); bf16 b in place needs N % 8 == 0 and offset 0
+K5_ODD = [(130, 48, 76, torch.int8, 4), (70, 40, 6, torch.bfloat16, 0),
+          (200, 136, 72, torch.bfloat16, 4), (129, 72, 64, torch.bfloat16, 0)]
 
 
 def _k5_inputs(m, k, n, dtype, gen):
@@ -653,27 +680,54 @@ def phase_k5():
     check = {}
     for ((m, k, n), dt), (a, b), got in zip(cases, inputs, outs):
         tag = f"{m}x{k}x{n} {str(dt)[6:]}"
-        ref = int8.tiled_mm_plain(a, b)
-        if got.shape != (m, n) or got.dtype != ref.dtype:
-            raise AssertionError(f"K5 {tag}: bad output {got.shape}")
-        if dt == torch.int8:
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K5 {tag}: int8 product not exact")
-            err = 0.0
-        else:
-            mag = a.float().abs() @ b.float().abs()
-            diff = (got - ref).abs()
-            bad = int((diff > 1e-5 * mag).sum())
-            if bad:
-                raise AssertionError(f"K5 {tag}: {bad} values beyond "
-                                     "1e-5 x (|a| @ |b|)")
-            err = float(diff.max())
+        err = _k5_held(got, a, b, tag)
         check[tag] = err
         log(f"[k5] {tag}: max_abs_err {err:.3g}")
-    m, k, n = K5_CASES[0]
-    times = {str(dt)[6:]: time_k5(*_k5_inputs(m, k, n, dt, gen))
-             for dt in (torch.int8, torch.bfloat16)}
+    check.update(_k5_odd_checks(gen))
+    times = {}
+    for m, k, n in K5_CASES:  # the 1024^3 timings are the kernel's row
+        for dt in (torch.int8, torch.bfloat16):
+            key = str(dt)[6:] if (m, k, n) == K5_CASES[0] else \
+                f"{m}x{k}x{n} {str(dt)[6:]}"
+            times[key] = time_k5(*_k5_inputs(m, k, n, dt, gen))
     return launches, check, times
+
+
+def _k5_held(got, a, b, tag):
+    """int8 equal to the plain product, bf16 within 1e-5 x (|a| @ |b|);
+    returns max|got - plain|."""
+    ref = int8.tiled_mm_plain(a, b)
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"K5 {tag}: bad output {got.shape}")
+    if a.dtype == torch.int8:
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K5 {tag}: int8 product not exact")
+        return 0.0
+    diff = (got - ref).abs()
+    bad = int((diff > 1e-5 * (a.float().abs() @ b.float().abs())).sum())
+    if bad:
+        raise AssertionError(f"K5 {tag}: {bad} values beyond "
+                             "1e-5 x (|a| @ |b|)")
+    return float(diff.max())
+
+
+def _k5_odd_checks(gen):
+    """K5 on K5_ODD, after the counted path: ragged M, N and K, both B
+    routes (the transpose for int8, for N % 8 != 0 and for a b off a
+    16-byte boundary)."""
+    check = {}
+    for m, k, n, dt, offset in K5_ODD:
+        a, b0 = _k5_inputs(m, k, n, dt, gen)
+        buf = torch.empty(k * n + 16, dtype=dt, device="cuda")
+        start = (-buf.data_ptr() % 16 + offset) // buf.element_size()
+        b = buf[start:start + k * n].view(k, n)
+        b.copy_(b0)
+        plan = int8.mm_launch_plan(a, b)
+        tag = (f"odd {m}x{k}x{n} {str(dt)[6:]} b at +{offset} B "
+               f"({'transposed' if plan['transpose_b'] else 'in place'})")
+        check[tag] = _k5_held(int8.tiled_mm(a, b), a, b, tag)
+        log(f"[k5] {tag}: max_abs_err {check[tag]:.3g}")
+    return check
 
 
 def time_k5(a, b):
@@ -686,23 +740,38 @@ def time_k5(a, b):
     ms = graph_ms(lambda: int8.tiled_mm(a, b))
     host_ms = cuda_ms(lambda: int8.tiled_mm(a, b), 200)
     plain_ms = graph_ms(lambda: int8.tiled_mm_plain(a, b))
+    library_f32_ms = None
     if a.dtype == torch.int8:
         library_ms = graph_ms(lambda: torch._int_mm(a, b))
         rate, out_bytes, lib = INT8_OPS_PER_S, 4, "torch._int_mm"
     else:
         library_ms = graph_ms(lambda: torch.matmul(a, b))
         rate, out_bytes, lib = BF16_OPS_PER_S, 4, "torch.matmul, bf16 out"
+        # K5's own function, f32 out (aten::mm.dtype), where torch has it
+        try:
+            f32 = torch.mm(a, b, out_dtype=torch.float32)
+        except (TypeError, RuntimeError) as e:
+            log(f"[k5] torch.mm(..., out_dtype=torch.float32) is missing "
+                f"here ({type(e).__name__}: {e}); bf16-out yardstick only")
+        else:
+            if f32.dtype != torch.float32:
+                raise AssertionError("torch.mm out_dtype gave "
+                                     f"{f32.dtype}")
+            library_f32_ms = graph_ms(
+                lambda: torch.mm(a, b, out_dtype=torch.float32))
+            lib += (f" / {library_f32_ms:.4f} ms (torch.mm, f32 out, "
+                    f"K5's function)")
     es = a.element_size()
     bd = bound((m * k + k * n) * es + m * n * out_bytes, 2 * m * n * k, rate)
     log(f"[k5] {m}x{k}x{n} {str(a.dtype)[6:]}: kernel {ms:.4f} ms "
         f"({2 * m * n * k / ms / 1e9:.1f} T{'OP' if es == 1 else 'FLOP'}/s; "
         f"{host_ms:.4f} ms a call issued from Python), "
-        f"plain {plain_ms:.4f} ms, library ({lib}) {library_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms ({lib}), "
         f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
         f"({bd['bytes']} B, {bd['ops']} ops)")
     return {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"]}
+            "library_ms": library_ms, "library_f32_out_ms": library_f32_ms,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
 
 
 # the probe's stage-B shape (exp_int8.py:221-229: H0 128, W 256,
@@ -1352,7 +1421,9 @@ def main():
                             "product",
                     "path": "the probe's stage A, 1024^3, 1000x1008x200 and "
                             "64x4096x1024, int8 and bf16"},
-             **k5_time["int8"], bf16=k5_time["bfloat16"]),
+             **k5_time["int8"], bf16=k5_time["bfloat16"],
+             other_shapes={k: v for k, v in k5_time.items()
+                           if k not in ("int8", "bfloat16")}),
         dict(name="chain_int8", route="cuda",
              source="dcfp_tpu_torch/csrc/int8_chain.cu",
              replaces="tools/exp_int8.py:176",

@@ -24,24 +24,32 @@
 // Then t2 for the tile goes to shared memory, and conv3 + b3 + x, ReLU
 // and the store run in chunks of 128 output channels.
 //
-// Two paths, one tiling.  256 threads = 8 warps per block.
+// Two paths.
 //
-// bf16 (the deploy dtype): the three products run on the tensor cores,
-// mma.sync m16n8k16 with bf16 inputs and f32 sums.  Each product is a
-// (pixels x K) by (K x 128 channels) pass; the 8 warps split it 2 x 4
-// over (pixels, channels), each warp 4 (conv1) or 2 (3x3, conv3) m-tiles
-// of 16 pixels by 4 n-tiles of 8 channels.  K is staged 64 deep: the
-// weights, [output][input] (the B operand's col layout), and for conv1
-// the x pixels of the grid, in 16-byte runs into shared memory with
-// 144-byte rows; the fragments come from ldmatrix.  ldmatrix takes one
-// row address per lane, so the 3x3 reads its A fragments straight from
-// the t1 grid at each tap's shift (the dilated gather costs nothing);
-// t1 and t2 rows are padded to 4 (mod 8) words so the 8 rows of a matrix
-// fall on distinct banks.  Bias, ReLU and the bf16 rounding of t1, t2 and
-// y happen on the fragments, in registers.
+// bf16 (the deploy dtype), redesigned for Hopper (csrc/sm90_tile.cuh): a
+// tile of up to 128 outputs (grid <= 192 t1 pixels), 384 threads = two
+// consumer warpgroups and one producer warpgroup.  The three products
+// run on wgmma m64n64k16 (bf16 in, f32 sums), each a (pixels x K) by
+// (K x 128 channels) pass in which warpgroup i takes channels
+// [64 i, 64 i + 64) over all the pass's 64-row m-tiles.  B, the weights
+// ([output][input], zero-padded to multiples of 64 once by the wrapper),
+// comes from shared memory: the producer's thread 0 loads 64-input x
+// 128-output boxes by TMA with the 128-byte swizzle into a ring of 2-4
+// 16 KB slots (full/empty mbarriers).  A comes from registers: a wgmma
+// descriptor cannot address the dilated gather, so the consumers load
+// m16k16 fragments with ldmatrix, as mma.sync did, from the t1 grid at
+// each tap's shifted rows (3x3) or from t2 (conv3).  conv1's A is the
+// grid's x pixels, strided by d and so no TMA box: the producer's 128
+// threads stage them by cp.async in 16-byte runs (an arrival on the full
+// barrier fires when they land), into 128-byte rows with the same XOR
+// swizzle the ldmatrix addresses undo; the x ring shares its room with
+// t2, which conv1 does not use yet.  A block whose tile lies past the
+// image in its residue class returns at once.  Bias, ReLU and the bf16
+// rounding of t1, t2 and y happen on the accumulators.
 //
 // f32 (exact, for checks): CUDA-core FMAs, since the tensor cores would
-// round the inputs.  Lanes own pixels (lane + 32*i), warps 16 consecutive
+// round the inputs.  256 threads = 8 warps, tiles of <= 64 outputs on a
+// grid of <= 128.  Lanes own pixels (lane + 32*i), warps 16 consecutive
 // channels, each thread up to 4 x 16 (conv1) or 2 x 16 f32 sums; K is
 // staged 32 deep, the weights [input][output] as f32 read as float4
 // broadcasts, the activations one scalar per pixel on rows whose stride
@@ -51,17 +59,21 @@
 // bf16): at the pruned R101's layer3 shape (1x1024x129x257 bf16, cm 128,
 // d 2) the block reads x once and writes y once, 137 MB, ~41 us, against
 // 27 GFLOP, ~27 us: bytes.  At layer4's (2048, cm 256, d 16) 109 GFLOP,
-// ~110 us, outweigh 275 MB: operations.  The bf16 path runs at about 55
-// and 36 TFLOP/s there (0.50 and 3.0 ms on an H100 at 700 W,
-// chip_smoke.py), far from either bound: staging is synchronous (no
-// cp.async or TMA ring, so the tensor cores wait on every load), the
-// tile is small (<= 64 outputs, so each weight chunk is reused on few
-// pixels), and conv1 is redone on the grid's ring.  wgmma with a
-// TMA-fed ring and larger tiles is the path to the bound.
+// ~110 us, outweigh 275 MB: operations.  Beyond the bounds, each block
+// restages every weight from L2 and redoes conv1 on its grid's ring
+// (192 / 128 pixels at an 8 x 16 tile), and conv1's passes of 128
+// channels restage x (twice at cm 256).  conv3's epilogue was the largest
+// cost of the first wgmma version: each warpgroup now copies its residual
+// slice into shared memory by cp.async while the pass's wgmmas run, adds
+// it there and stores y in 16-byte coalesced runs.  Measured
+// (chip_smoke.py and pair_times.py, CUDA events over 30 launches, NVIDIA
+// H100 80GB HBM3, power limit 700.00 W): layer3 0.236 ms and layer4 0.680
+// ms, against 0.489 and 3.00 for the mma.sync version before it in the
+// same run and 0.351 and 0.732 for the cuDNN chain; still 5.8x and 6.2x
+// the bounds.  The 3x3's wgmmas take A from registers, and ptxas injects
+// warpgroup.arrive fences around them (C7519 in the build log).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_tile.cuh"
 
 namespace {
 
@@ -296,12 +308,6 @@ dim3 tile_grid(int n, int h, int w, int d, int R, int S, int* ny, int* nx) {
   return dim3(d * *nx, d * *ny, n);
 }
 
-int set_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 int launch_fma(const void* x, int n, int cin, int h, int w, long long sn,
                long long sc, long long sh, long long sw, int cm, int d,
                const void* w1, const void* b1, const void* w2, const void* b2,
@@ -311,7 +317,8 @@ int launch_fma(const void* x, int n, int cin, int h, int w, long long sn,
   const int ldt = cmp + 1;  // row stride: an odd number of words
   const size_t smem = (size_t)(kK * kCo + kK * kXs) * sizeof(float) +
                       (size_t)((R + 2) * (S + 2) + R * S) * ldt * sizeof(float);
-  if (const int e = set_smem((const void*)bottleneck_fma_kernel, smem)) return e;
+  if (const int e = sm90::set_smem((const void*)bottleneck_fma_kernel, smem))
+    return e;
   int ny, nx;
   const dim3 grid = tile_grid(n, h, w, d, R, S, &ny, &nx);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
@@ -324,303 +331,422 @@ int launch_fma(const void* x, int n, int cin, int h, int w, long long sn,
   return (int)cudaGetLastError();
 }
 
-// ---- bf16: tensor cores (ldmatrix + mma.sync m16n8k16, f32 sums) ----
+// ---- bf16: wgmma, weights by TMA, x by cp.async (csrc/sm90_tile.cuh) ----
 
 typedef __nv_bfloat16 bf16;
-constexpr int kKc = 64;        // reduction depth staged per step
-constexpr int kLdx = kKc + 8;  // staging row stride (bf16): 144 B rows
-constexpr int kRows = 128;     // staging rows: grid pixels, or channels
+constexpr int kCons = 2;                     // consumer warpgroups
+constexpr int kMmaThreads = 128 * (kCons + 1);  // + the producer warpgroup
+constexpr int kNc = 128;                     // output channels per pass
+constexpr int kKs = 64;                      // K (bf16) per stage
+constexpr int kSlot = kNc * kKs * 2;         // weight bytes per stage
+constexpr int kMaxQ = 192, kMaxP = 128;      // grid and tile pixels
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+struct MmaGeom {
+  int Q, P, Qp, Pp, cmp, cinp, ldt;
+  size_t t1, u, bars, goff, poff, total;  // byte offsets and size
+};
+
+// The layout of the dynamic shared memory (1024-byte aligned base):
+// the weight ring (stages x 16 KB), t1 on the grid (Qp rows of ldt bf16;
+// during conv3 the two warpgroups' epilogue buffers, Pp x 128 bytes each),
+// then t2 on the tile (cmp / 64 blocks of Pp 128-byte swizzled rows),
+// which during conv1 holds the x ring instead (stages x Qp rows of 128
+// bytes, swizzled alike), the barriers and the pixel tables.  ops/bottleneck.py `smem_bytes` states the same sum.
+__host__ __device__ inline MmaGeom mma_geom(int R, int S, int cin, int cm,
+                                            int stages) {
+  MmaGeom g;
+  g.Q = (R + 2) * (S + 2);
+  g.P = R * S;
+  g.Qp = (g.Q + 63) / 64 * 64;
+  g.Pp = (g.P + 63) / 64 * 64;
+  g.cmp = (cm + 63) / 64 * 64;
+  g.cinp = (cin + 63) / 64 * 64;
+  // 16 bytes past a multiple of 128: the 8 rows an ldmatrix reads fall
+  // on distinct banks
+  g.ldt = g.cmp + 8;
+  g.t1 = (size_t)stages * kSlot;
+  // t1's room also holds conv3's epilogue buffers (2 x Pp x 128 bytes)
+  const size_t t1 = (size_t)g.Qp * g.ldt * 2, yb = (size_t)g.Pp * 256;
+  g.u = g.t1 + (t1 > yb ? t1 : yb);
+  const size_t t2 = (size_t)g.Pp * g.cmp * 2, xr = (size_t)stages * g.Qp * 128;
+  g.bars = g.u + (t2 > xr ? t2 : xr);
+  g.goff = g.bars + 2 * stages * sizeof(uint64_t);
+  g.poff = g.goff + g.Qp * sizeof(long long);
+  g.total = 1024 + g.poff + g.Pp * sizeof(long long);
+  return g;
 }
 
-__device__ __forceinline__ void mma_16816(float (&c)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// dst[r][k] = m[(r0 + r) * cols + k0 + k] for r < kRows, k < kKc, zero
-// outside the row-major (rows, cols) matrix m.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* m, int rows,
-                                           int cols, int r0, int k0) {
-  if ((cols & 7) == 0) {  // 16-byte runs
-    for (int e = threadIdx.x; e < kRows * (kKc / 8); e += kThreads) {
-      const int r = e / (kKc / 8), k = (e % (kKc / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r0 + r < rows && k0 + k < cols)
-        v = *reinterpret_cast<const uint4*>(m + (size_t)(r0 + r) * cols +
-                                            k0 + k);
-      *reinterpret_cast<uint4*>(dst + r * kLdx + k) = v;
-    }
-  } else {
-    for (int e = threadIdx.x; e < kRows * kKc; e += kThreads) {
-      const int r = e / kKc, k = e % kKc;
-      dst[r * kLdx + k] = (r0 + r < rows && k0 + k < cols)
-                              ? m[(size_t)(r0 + r) * cols + k0 + k]
-                              : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// dst[q][k] = x[q, k0 + k] for the grid pixels q (offsets goff, -1
-// outside the image), zero outside.
-__device__ __forceinline__ void stage_pixels(bf16* dst, const bf16* x,
-                                             const long long* goff,
-                                             long long sc, int cin, int k0) {
-  if (sc == 1 && (cin & 7) == 0) {  // channels_last: 16-byte runs
-    for (int e = threadIdx.x; e < kRows * (kKc / 8); e += kThreads) {
-      const int q = e / (kKc / 8), k = (e % (kKc / 8)) * 8;
-      const long long off = goff[q];
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (off >= 0 && k0 + k < cin)
-        v = *reinterpret_cast<const uint4*>(x + off + k0 + k);
-      *reinterpret_cast<uint4*>(dst + q * kLdx + k) = v;
-    }
-  } else {
-    for (int e = threadIdx.x; e < kRows * kKc; e += kThreads) {
-      const int q = e / kKc, k = e % kKc;
-      const long long off = goff[q];
-      dst[q * kLdx + k] = (off >= 0 && k0 + k < cin)
-                              ? x[off + (k0 + k) * sc]
-                              : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// Weights: W1 (cm, cin), W2 (9, cm_out, cm_in), W3 (cin, cm), each
-// [output channel][input channel], the B operand's "col" layout.
-__global__ void __launch_bounds__(kThreads)
-bottleneck_mma_kernel(const bf16* __restrict__ x, long long sn, long long sc,
-                      long long sh, long long sw, int cin, int h, int w,
-                      int cm, int d, const bf16* __restrict__ w1,
-                      const float* __restrict__ b1,
-                      const bf16* __restrict__ w2,
-                      const float* __restrict__ b2,
-                      const bf16* __restrict__ w3,
-                      const float* __restrict__ b3, bf16* __restrict__ out,
-                      int R, int S, int ny, int nx, int ldt) {
-  const int Q = (R + 2) * (S + 2), P = R * S;
-  const int Qp = (Q + 15) / 16 * 16, Pp = (P + 15) / 16 * 16;
-  const int cmp = (cm + 15) / 16 * 16;  // t1/t2 columns, zero past cm
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][kLdx]
-  bf16* ws = xs + kRows * kLdx;                   // [kRows][kLdx]
-  bf16* t1s = ws + kRows * kLdx;                  // [Qp][ldt]
-  bf16* t2s = t1s + Qp * ldt;                     // [Pp][ldt]
-  __shared__ long long goff[kGrid];
-  __shared__ long long poff[kOut];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;     // mma fragment coordinates
-  const int wm = warp >> 2, wn = warp & 3;     // 2 x 4 warps over (M, N)
-  // ldmatrix: the A row and k half this lane addresses, and the B
-  // (two n-tiles) row and k half
-  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ak = (lane >> 4) * 8;
-  const int br = (lane & 7) + (lane >> 4) * 8, bk = ((lane >> 3) & 1) * 8;
+// Weights (bf16, zero-padded to cinp / cmp): W1 (cmp, cinp),
+// W2 (9, cmp, cmp), W3 (cinp, cmp), each [output][input] (K-major B),
+// read through the tensor maps m1, m2 (3D: input, output, tap) and m3 in
+// boxes of 64 inputs x 128 outputs.  Biases f32, unpadded.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+bottleneck_wgmma_kernel(const __grid_constant__ CUtensorMap m1,
+                        const __grid_constant__ CUtensorMap m2,
+                        const __grid_constant__ CUtensorMap m3,
+                        const bf16* __restrict__ x, long long sn,
+                        long long sc, long long sh, long long sw, int cin,
+                        int h, int w, int cm, int d,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ b2,
+                        const float* __restrict__ b3, bf16* __restrict__ out,
+                        int R, int S, int ny, int nx, int stages) {
+  using namespace sm90;
+  const MmaGeom G = mma_geom(R, S, cin, cm, stages);
   const int ry = blockIdx.y / ny, ty = blockIdx.y % ny;
   const int rx = blockIdx.x / nx, tx = blockIdx.x % nx;
+  // a tile past the image in its residue class: nothing to do
+  if (ry + d * ty * R >= h || rx + d * tx * S >= w) return;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* wring = sm;
+  bf16* t1 = reinterpret_cast<bf16*>(sm + G.t1);
+  unsigned char* t2b = sm + G.u;  // t2 and, during conv1, the x ring
+  unsigned char* xring = sm + G.u;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G.bars);
+  uint64_t* empty = full + stages;
+  long long* goff = reinterpret_cast<long long*>(sm + G.goff);
+  long long* poff = reinterpret_cast<long long*>(sm + G.poff);
   const long long base = (long long)blockIdx.z * sn;
 
-  if (threadIdx.x < kGrid) {
-    const int q = threadIdx.x;
+  for (int q = threadIdx.x; q < G.Qp; q += kMmaThreads) {
     const int gy = ry + d * (ty * R + q / (S + 2) - 1);
     const int gx = rx + d * (tx * S + q % (S + 2) - 1);
-    goff[q] = (q < Q && gy >= 0 && gy < h && gx >= 0 && gx < w)
+    goff[q] = (q < G.Q && gy >= 0 && gy < h && gx >= 0 && gx < w)
                   ? base + gy * sh + gx * sw
                   : -1;
-  } else if (threadIdx.x < kGrid + kOut) {
-    const int p = threadIdx.x - kGrid;
+  }
+  for (int p = threadIdx.x; p < G.Pp; p += kMmaThreads) {
     const int oy = ry + d * (ty * R + p / S);
     const int ox = rx + d * (tx * S + p % S);
-    poff[p] = (p < P && oy < h && ox < w) ? base + oy * sh + ox * sw : -1;
+    poff[p] = (p < G.P && oy < h && ox < w) ? base + oy * sh + ox * sw : -1;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 129);  // thread 0's expect_tx + every producer
+      mbar_init(empty + s, kCons * 4);   // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int np1 = (G.cmp + kNc - 1) / kNc;   // passes over t1's channels
+  const int np3 = (G.cinp + kNc - 1) / kNc;  // passes over y's channels
+  const int kc1 = G.cinp / kKs, kc2 = G.cmp / kKs;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (wg == kCons) {
+    // ---- producer warpgroup: weights by TMA (thread 0, which also
+    // arrives with the expected bytes), x by cp.async (all 128 threads),
+    // one more full-barrier arrival per thread a stage ----
+    reg_dealloc<40>();
+    const bool runs = sc == 1 && (cin & 7) == 0;  // 16-byte channel runs
+    Ring r(stages);
+    auto acquire = [&]() { mbar_wait(empty + r.slot, r.phase ^ 1); };
+    auto weights_tx = [&]() {
+      if (tid == 0) mbar_arrive_tx(full + r.slot, kSlot);
+      return wring + r.slot * kSlot;
+    };
+    auto release = [&]() {  // after this thread's stores or cp.async
+      mbar_arrive(full + r.slot);
+      r.next();
+    };
+    for (int p1 = 0; p1 < np1; ++p1) {
+      for (int kc = 0; kc < kc1; ++kc) {
+        acquire();
+        unsigned char* ws = weights_tx();
+        if (tid == 0) tma_load_2d(ws, &m1, full + r.slot, kc * kKs, p1 * kNc);
+        unsigned char* xs = xring + (size_t)r.slot * G.Qp * 128;
+        const int k0 = kc * kKs;
+        if (runs) {
+          for (int e = tid; e < G.Qp * 8; e += 128) {
+            const int q = e >> 3, c = e & 7;
+            const long long off = goff[q];
+            const bool ok = off >= 0 && k0 + c * 8 < cin;
+            cp_async16(xs + swz128(q, c), ok ? x + off + k0 + c * 8 : x, ok);
+          }
+          mbar_arrive_cp_async(full + r.slot);
+        } else {
+          for (int e = tid; e < G.Qp * kKs; e += 128) {
+            const int q = e / kKs, k = e % kKs;
+            const long long off = goff[q];
+            const bf16 v = (off >= 0 && k0 + k < cin)
+                               ? x[off + (k0 + k) * sc]
+                               : __float2bfloat16_rn(0.f);
+            *reinterpret_cast<bf16*>(xs + swz128(q, k >> 3) + (k & 7) * 2) = v;
+          }
+        }
+        release();
+      }
+    }
+    for (int p2 = 0; p2 < np1; ++p2)
+      for (int tap = 0; tap < 9; ++tap)
+        for (int kc = 0; kc < kc2; ++kc) {
+          acquire();
+          unsigned char* ws = weights_tx();
+          if (tid == 0)
+            tma_load_3d(ws, &m2, full + r.slot, kc * kKs, p2 * kNc, tap);
+          release();
+        }
+    for (int p3 = 0; p3 < np3; ++p3)
+      for (int kc = 0; kc < kc2; ++kc) {
+        acquire();
+        unsigned char* ws = weights_tx();
+        if (tid == 0) tma_load_2d(ws, &m3, full + r.slot, kc * kKs, p3 * kNc);
+        release();
+      }
+    return;
   }
 
-  // B fragments of this warp's 4 n-tiles (32 channels) at k-step ks
-  auto load_b = [&](uint32_t (&b)[4][2], int ks) {
+  // ---- consumer warpgroups: wg owns channels [pass * 128 + wg * 64, +64)
+  // of every pass, over all the pass's 64-row m-tiles ----
+  reg_alloc<232>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int ar = lane & 15, ak = lane >> 4;  // ldmatrix row, 16-byte half
+  const int nq = G.Qp / 64, npm = G.Pp / 64;
+  const uint32_t t1a = smem_u32(t1), t2a = smem_u32(t2b);
+  Ring r(stages);
+  int pending = -1;  // the slot whose wgmma group may still be in flight
+  float acc[3][32];
+  auto zero = [&]() {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t r[4];
-      ldsm_x4(r, ws + (wn * 32 + j * 16 + br) * kLdx + ks * 16 + bk);
-      b[2 * j][0] = r[0];
-      b[2 * j][1] = r[1];
-      b[2 * j + 1][0] = r[2];
-      b[2 * j + 1][1] = r[3];
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  };
+  auto fence_all = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt) fence_acc(acc[mt]);
+  };
+  auto release = [&](int slot) {
+    if (lane == 0) mbar_arrive(empty + slot);
+  };
+  // A from shared memory (conv1's x ring, conv3's t2): `abase` is m-tile
+  // 0 of the stage's 64 K values in 128-byte-swizzled rows.  One group
+  // stays in flight; the slot of the one before it is released.
+  auto stage_ss = [&](uint32_t abase, int mts, bool on) {
+    mbar_wait(full + r.slot, r.phase);
+    if (on) {
+      fence_proxy_async();  // x written by cp.async / st.shared
+      const unsigned char* ws = wring + r.slot * kSlot + wg * 64 * 128;
+      fence_all();
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t db = desc_b128(ws + ks * 32, 16, 1024);
+#pragma unroll
+        for (int mt = 0; mt < 3; ++mt)
+          if (mt < mts)
+            wgmma_bf16_ss<0>(acc[mt],
+                             desc_b128(abase + mt * 8192 + ks * 32, 16, 1024),
+                             db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_all();
     }
+    if (pending >= 0) release(pending);
+    pending = r.slot;
+    r.next();
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    fence_all();
+    if (pending >= 0) release(pending);
+    pending = -1;
+  };
+  // A from registers (the 3x3's shifted t1 rows): fragments for every
+  // (k16 step, m-tile) by ldmatrix from arow[mt], this lane's row at the
+  // stage's first column; the registers must hold until the group is
+  // done, so the stage waits for it.
+  auto stage_rs = [&](const uint32_t (&arow)[2], int mts, bool on) {
+    mbar_wait(full + r.slot, r.phase);
+    if (on) {
+      const unsigned char* ws = wring + r.slot * kSlot + wg * 64 * 128;
+      uint32_t a[4][2][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          if (mt < mts) ldsm_x4(a[ks][mt], arow[mt] + (2 * ks + ak) * 16);
+      fence_all();
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t db = desc_b128(ws + ks * 32, 16, 1024);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          if (mt < mts) wgmma_bf16_rs(acc[mt], a[ks][mt], db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            asm volatile("" : "+r"(a[ks][mt][i])::"memory");
+    }
+    release(r.slot);
+    r.next();
   };
 
   // ---- 1. t1 = relu(x W1 + b1) on the grid, zero outside the image ----
-  for (int co0 = 0; co0 < cmp; co0 += kRows) {
-    float acc[4][4][4];
+  for (int p1 = 0; p1 < np1; ++p1) {
+    const int col0 = p1 * kNc + wg * 64;
+    const bool on = col0 < G.cmp;
+    zero();
+    for (int kc = 0; kc < kc1; ++kc)
+      stage_ss(smem_u32(xring) + r.slot * G.Qp * 128, nq, on);
+    drain();
+    if (!on) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int mt = 0; mt < 3; ++mt) {
+      if (mt >= nq) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    for (int k0 = 0; k0 < cin; k0 += kKc) {
-      __syncthreads();
-      stage_pixels(xs, x, goff, sc, cin, k0);
-      stage_rows(ws, w1, cm, cin, co0, k0);
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kKc / 16; ++ks) {
-        uint32_t b[4][2];
-        load_b(b, ks);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int mt = wm * 4 + i;
-          if (mt * 16 < Qp) {
-            uint32_t a[4];
-            ldsm_x4(a, xs + (mt * 16 + ar) * kLdx + ks * 16 + ak);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], a, b[j][0], b[j][1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int mt = wm * 4 + i;
-      if (mt * 16 >= Qp) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = co0 + wn * 32 + j * 8 + tig * 2;
-        if (c >= cmp) continue;
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + 8 * j + 2 * t;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int q = mt * 16 + g + 8 * hh;
+          const int q = mt * 64 + warp * 16 + g + 8 * hh;
           const bool inside = goff[q] >= 0;
           const float v0 = (inside && c < cm)
-                               ? fmaxf(acc[i][j][2 * hh] + b1[c], 0.f) : 0.f;
+                               ? fmaxf(acc[mt][4 * j + 2 * hh] + b1[c], 0.f) : 0.f;
           const float v1 = (inside && c + 1 < cm)
-                               ? fmaxf(acc[i][j][2 * hh + 1] + b1[c + 1], 0.f)
+                               ? fmaxf(acc[mt][4 * j + 2 * hh + 1] + b1[c + 1], 0.f)
                                : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(t1s + q * ldt + c) =
+          *reinterpret_cast<__nv_bfloat162*>(t1 + q * G.ldt + c) =
               __floats2bfloat162_rn(v0, v1);
         }
       }
     }
   }
+  bar_sync(1, kCons * 128);  // t1 complete; the x ring is free for t2
 
-  // ---- 2. t2 = relu(sum_taps t1 W2 + b2) on the tile ----
-  int grow[2];  // t1 grid row of this lane's ldmatrix row, per m-tile
+  // ---- 2. t2 = relu(sum_taps t1 W2 + b2) on the tile, written in
+  // 64-channel blocks of 128-byte-swizzled rows (conv3's A layout) ----
+  uint32_t grow[2];  // t1 row of this lane's ldmatrix row, per m-tile
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int p = (wm * 2 + i) * 16 + ar;
-    grow[i] = p < P ? (p / S) * (S + 2) + p % S : 0;
+  for (int mt = 0; mt < 2; ++mt) {
+    const int p = mt * 64 + warp * 16 + ar;
+    grow[mt] = p < G.P ? (p / S) * (S + 2) + p % S : 0;
   }
-  for (int co0 = 0; co0 < cmp; co0 += kRows) {
-    float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int p2 = 0; p2 < np1; ++p2) {
+    const int col0 = p2 * kNc + wg * 64;
+    const bool on = col0 < G.cmp;
+    zero();
     for (int tap = 0; tap < 9; ++tap) {
       const int shift = (tap / 3) * (S + 2) + tap % 3;
-      for (int k0 = 0; k0 < cmp; k0 += kKc) {
-        __syncthreads();
-        stage_rows(ws, w2 + (size_t)tap * cm * cm, cm, cm, co0, k0);
-        __syncthreads();
+      for (int kc = 0; kc < kc2; ++kc) {
+        uint32_t arow[2];
 #pragma unroll
-        for (int ks = 0; ks < kKc / 16; ++ks) {
-          if (k0 + ks * 16 >= cmp) break;
-          uint32_t b[4][2];
-          load_b(b, ks);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int mt = wm * 2 + i;
-            if (mt * 16 < Pp) {
-              uint32_t a[4];
-              ldsm_x4(a, t1s + (grow[i] + shift) * ldt + k0 + ks * 16 + ak);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                mma_16816(acc[i][j], a, b[j][0], b[j][1]);
-            }
-          }
-        }
+        for (int mt = 0; mt < 2; ++mt)
+          arow[mt] = t1a + (grow[mt] + shift) * G.ldt * 2 + kc * kKs * 2;
+        stage_rs(arow, npm, on);
       }
     }
+    if (!on) continue;
+    unsigned char* blk = t2b + (col0 >> 6) * G.Pp * 128;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int mt = wm * 2 + i;
-      if (mt * 16 >= Pp) continue;
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt >= npm) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = co0 + wn * 32 + j * 8 + tig * 2;
-        if (c >= cmp) continue;
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + 8 * j + 2 * t;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int p = mt * 16 + g + 8 * hh;
+          const int p = mt * 64 + warp * 16 + g + 8 * hh;
           const float v0 =
-              c < cm ? fmaxf(acc[i][j][2 * hh] + b2[c], 0.f) : 0.f;
+              c < cm ? fmaxf(acc[mt][4 * j + 2 * hh] + b2[c], 0.f) : 0.f;
           const float v1 =
-              c + 1 < cm ? fmaxf(acc[i][j][2 * hh + 1] + b2[c + 1], 0.f) : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(t2s + p * ldt + c) =
+              c + 1 < cm ? fmaxf(acc[mt][4 * j + 2 * hh + 1] + b2[c + 1], 0.f)
+                         : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(blk + swz128(p, j) + 4 * t) =
               __floats2bfloat162_rn(v0, v1);
         }
       }
     }
   }
+  fence_proxy_async();       // t2 is read by wgmma (the async proxy)
+  bar_sync(1, kCons * 128);  // t2 complete
 
-  // ---- 3. y = relu(t2 W3 + b3 + x), stored in x's layout ----
+  // ---- 3. y = relu(t2 W3 + b3 + x), stored in x's layout.  In
+  // channels_last with 16-byte channel runs, each warpgroup copies the
+  // residual x of its 64 channels into a buffer in t1's room by cp.async
+  // while the pass's wgmmas run, adds it there and stores y from there,
+  // 16 coalesced bytes a thread; otherwise element by element. ----
+  const bool runs = sc == 1 && (cin & 7) == 0;
   const bool pairs = sc == 1 && (cin & 1) == 0;  // 4-byte channel pairs
-  for (int co0 = 0; co0 < cin; co0 += kRows) {
-    float acc[2][4][4];
+  unsigned char* yb = sm + G.t1 + wg * G.Pp * 128;
+  for (int p3 = 0; p3 < np3; ++p3) {
+    const int col0 = p3 * kNc + wg * 64;
+    const bool on = col0 < G.cinp;
+    if (on && runs) {
+      for (int e = tid; e < G.Pp * 8; e += 128) {
+        const int p = e >> 3, c = e & 7;
+        const long long off = poff[p];
+        const bool ok = off >= 0 && col0 + c * 8 < cin;
+        cp_async16(yb + swz128(p, c), ok ? x + off + col0 + c * 8 : x, ok);
+      }
+      cp_async_commit();
+    }
+    zero();
+    for (int kc = 0; kc < kc2; ++kc) stage_ss(t2a + kc * G.Pp * 128, npm, on);
+    drain();
+    if (!on) continue;
+    if (runs) {
+      cp_async_wait_all();
+      bar_sync(2 + wg, 128);  // the warpgroup's residual has landed
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt >= npm) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 8; ++j) {
+          const int c = col0 + 8 * j + 2 * t;
+          if (c >= cin) continue;  // cin % 8 == 0: c + 1 < cin too
+          const float2 bv = make_float2(b3[c], b3[c + 1]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    for (int k0 = 0; k0 < cmp; k0 += kKc) {
-      __syncthreads();
-      stage_rows(ws, w3, cin, cm, co0, k0);
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kKc / 16; ++ks) {
-        if (k0 + ks * 16 >= cmp) break;
-        uint32_t b[4][2];
-        load_b(b, ks);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int mt = wm * 2 + i;
-          if (mt * 16 < Pp) {
-            uint32_t a[4];
-            ldsm_x4(a, t2s + (mt * 16 + ar) * ldt + k0 + ks * 16 + ak);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              mma_16816(acc[i][j], a, b[j][0], b[j][1]);
+          for (int hh = 0; hh < 2; ++hh) {
+            const int p = mt * 64 + warp * 16 + g + 8 * hh;
+            __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(
+                yb + swz128(p, j) + 4 * t);
+            const float2 xv = __bfloat1622float2(*v);
+            *v = __floats2bfloat162_rn(
+                fmaxf(acc[mt][4 * j + 2 * hh] + bv.x + xv.x, 0.f),
+                fmaxf(acc[mt][4 * j + 2 * hh + 1] + bv.y + xv.y, 0.f));
           }
         }
       }
+      bar_sync(2 + wg, 128);  // y is in the buffer
+      for (int e = tid; e < G.Pp * 8; e += 128) {
+        const int p = e >> 3, c = e & 7;
+        const long long off = poff[p];
+        if (off >= 0 && col0 + c * 8 < cin)
+          *reinterpret_cast<uint4*>(out + off + col0 + c * 8) =
+              *reinterpret_cast<const uint4*>(yb + swz128(p, c));
+      }
+      bar_sync(2 + wg, 128);  // the buffer is free for the next pass
+      continue;
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int mt = wm * 2 + i;
-      if (mt * 16 >= Pp) continue;
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt >= npm) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = co0 + wn * 32 + j * 8 + tig * 2;
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + 8 * j + 2 * t;
         if (c >= cin) continue;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int p = mt * 16 + g + 8 * hh;
-          if (p >= P) continue;
+          const int p = mt * 64 + warp * 16 + g + 8 * hh;
+          if (p >= G.P) continue;
           const long long off = poff[p];
           if (off < 0) continue;
-          const float y0 = acc[i][j][2 * hh] + b3[c];
+          const float y0 = acc[mt][4 * j + 2 * hh] + b3[c];
           if (pairs) {
             const long long at = off + c;
             const float2 xv = __bfloat1622float2(
@@ -628,13 +754,14 @@ bottleneck_mma_kernel(const bf16* __restrict__ x, long long sn, long long sc,
             *reinterpret_cast<__nv_bfloat162*>(out + at) =
                 __floats2bfloat162_rn(
                     fmaxf(y0 + xv.x, 0.f),
-                    fmaxf(acc[i][j][2 * hh + 1] + b3[c + 1] + xv.y, 0.f));
+                    fmaxf(acc[mt][4 * j + 2 * hh + 1] + b3[c + 1] + xv.y,
+                          0.f));
           } else {
             const long long at = off + c * sc;
             out[at] = __float2bfloat16_rn(
                 fmaxf(y0 + __bfloat162float(x[at]), 0.f));
             if (c + 1 < cin) {
-              const float y1 = acc[i][j][2 * hh + 1] + b3[c + 1];
+              const float y1 = acc[mt][4 * j + 2 * hh + 1] + b3[c + 1];
               out[at + sc] = __float2bfloat16_rn(
                   fmaxf(y1 + __bfloat162float(x[at + sc]), 0.f));
             }
@@ -645,28 +772,47 @@ bottleneck_mma_kernel(const bf16* __restrict__ x, long long sn, long long sc,
   }
 }
 
-int launch_mma(const void* x, int n, int cin, int h, int w, long long sn,
-               long long sc, long long sh, long long sw, int cm, int d,
-               const void* w1, const void* b1, const void* w2, const void* b2,
-               const void* w3, const void* b3, void* out, int R, int S,
-               cudaStream_t s) {
-  const int Qp = ((R + 2) * (S + 2) + 15) / 16 * 16;
-  const int Pp = (R * S + 15) / 16 * 16;
-  // row stride: 16-byte rows for ldmatrix, 4 (mod 8) words between rows
-  // so the eight rows of a matrix fall on distinct banks
-  const int ldt = (cm + 15) / 16 * 16 + 8;
-  const size_t smem =
-      (size_t)(2 * kRows * kLdx + (Qp + Pp) * ldt) * sizeof(bf16);
-  if (const int e = set_smem((const void*)bottleneck_mma_kernel, smem)) return e;
+int launch_wgmma(const void* x, int n, int cin, int h, int w, long long sn,
+                 long long sc, long long sh, long long sw, int cm, int d,
+                 const void* w1, const void* b1, const void* w2,
+                 const void* b2, const void* w3, const void* b3, void* out,
+                 int R, int S, int stages, cudaStream_t s) {
+  if (R * S > kMaxP || (R + 2) * (S + 2) > kMaxQ || stages < 2)
+    return (int)cudaErrorInvalidValue;
+  const MmaGeom G = mma_geom(R, S, cin, cm, stages);
+  CUtensorMap m1, m2, m3;
+  const CUtensorMapDataType bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint32_t box2[2] = {kKs, kNc}, box3[3] = {kKs, kNc, 1};
+  {
+    const uint64_t dims[2] = {(uint64_t)G.cinp, (uint64_t)G.cmp};
+    const uint64_t strides[1] = {(uint64_t)G.cinp * 2};
+    if (const int e = sm90::make_map(&m1, bt, 2, w1, dims, strides, box2))
+      return e;
+  }
+  {
+    const uint64_t dims[3] = {(uint64_t)G.cmp, (uint64_t)G.cmp, 9};
+    const uint64_t strides[2] = {(uint64_t)G.cmp * 2,
+                                 (uint64_t)G.cmp * G.cmp * 2};
+    if (const int e = sm90::make_map(&m2, bt, 3, w2, dims, strides, box3))
+      return e;
+  }
+  {
+    const uint64_t dims[2] = {(uint64_t)G.cmp, (uint64_t)G.cinp};
+    const uint64_t strides[1] = {(uint64_t)G.cmp * 2};
+    if (const int e = sm90::make_map(&m3, bt, 2, w3, dims, strides, box2))
+      return e;
+  }
+  if (const int e = sm90::set_smem((const void*)bottleneck_wgmma_kernel,
+                                   G.total))
+    return e;
   int ny, nx;
   const dim3 grid = tile_grid(n, h, w, d, R, S, &ny, &nx);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  bottleneck_mma_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(x), sn, sc, sh, sw, cin, h, w, cm, d,
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<const bf16*>(w3), static_cast<const float*>(b3),
-      static_cast<bf16*>(out), R, S, ny, nx, ldt);
+  bottleneck_wgmma_kernel<<<grid, kMmaThreads, G.total, s>>>(
+      m1, m2, m3, static_cast<const bf16*>(x), sn, sc, sh, sw, cin, h, w, cm,
+      d, static_cast<const float*>(b1), static_cast<const float*>(b2),
+      static_cast<const float*>(b3), static_cast<bf16*>(out), R, S, ny, nx,
+      stages);
   return (int)cudaGetLastError();
 }
 
@@ -675,12 +821,14 @@ int launch_mma(const void* x, int n, int cin, int h, int w, long long sn,
 // Plain C entry, loaded with ctypes.  x is (N, cin, H, W) with element
 // strides sn, sc, sh, sw, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); out has
 // x's shape and strides.  Weights are contiguous in x's dtype: for f32,
-// w1 (cin, cm), w2 (9, cm_in, cm_out), w3 (cm, cin); for bf16 (the
-// tensor-core path, B operands [output][input]), w1 (cm, cin),
-// w2 (9, cm_out, cm_in), w3 (cin, cm).  b1 (cm), b2 (cm) and b3 (cin) are
-// f32.  R x S is the output tile (R*S <= 64, (R+2)(S+2) <= 128).
-// Launches on `stream`, which must belong to the current device, and
-// returns cudaGetLastError() (0 on success); it does not synchronise.
+// w1 (cin, cm), w2 (9, cm_in, cm_out), w3 (cm, cin); for bf16 (the wgmma
+// path, B operands [output][input], zero-padded to cinp and cmp, cin and
+// cm rounded up to 64), w1 (cmp, cinp), w2 (9, cmp, cmp), w3 (cinp, cmp),
+// on 16-byte boundaries.  b1 (cm), b2 (cm) and b3 (cin) are f32.  R x S is
+// the output tile: f32 R*S <= 64, (R+2)(S+2) <= 128; bf16 R*S <= 128,
+// (R+2)(S+2) <= 192, with `stages` (>= 2) slots in its ring (ignored for
+// f32).  Launches on `stream`, which must belong to the current device,
+// and returns cudaGetLastError() (0 on success); it does not synchronise.
 extern "C" int dcfp_fused_bottleneck(const void* x, int is_bf16, int n,
                                      int cin, int h, int w, long long sn,
                                      long long sc, long long sh, long long sw,
@@ -688,14 +836,15 @@ extern "C" int dcfp_fused_bottleneck(const void* x, int is_bf16, int n,
                                      const void* b1, const void* w2,
                                      const void* b2, const void* w3,
                                      const void* b3, void* out, int R, int S,
-                                     void* stream) {
+                                     int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || cin < 1 || cm < 1 || d < 1 || R < 1 || S < 1 ||
-      R * S > kOut || (R + 2) * (S + 2) > kGrid)
+  if (n < 1 || cin < 1 || cm < 1 || d < 1 || R < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return launch_mma(x, n, cin, h, w, sn, sc, sh, sw, cm, d, w1, b1, w2, b2,
-                      w3, b3, out, R, S, s);
+    return launch_wgmma(x, n, cin, h, w, sn, sc, sh, sw, cm, d, w1, b1, w2,
+                        b2, w3, b3, out, R, S, stages, s);
+  if (R * S > kOut || (R + 2) * (S + 2) > kGrid)
+    return (int)cudaErrorInvalidValue;
   return launch_fma(x, n, cin, h, w, sn, sc, sh, sw, cm, d, w1, b1, w2, b2,
                     w3, b3, out, R, S, s);
 }

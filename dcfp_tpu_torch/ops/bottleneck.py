@@ -32,11 +32,16 @@ import torch.nn.functional as F
 
 from dcfp_tpu_torch.ops.kernels import _CI, _CL, _VP, c_entry, run_c_entry
 
-# Limits of csrc/bottleneck.cu: a tile of R x S output pixels (R*S <= 64)
-# needs t1 on its (R+2) x (S+2) grid (<= 128 pixels); the pixel tables
-# take 1.5 KB of the 227 KB a block may use.
+# Limits of csrc/bottleneck.cu.  f32 (FMAs): a tile of R x S output
+# pixels (R*S <= 64) needs t1 on its (R+2) x (S+2) grid (<= 128 pixels),
+# and the pixel tables take 1.5 KB of the 227 KB a block may use.  bf16
+# (wgmma): R*S <= 128 and a grid of <= 192 pixels, everything in dynamic
+# shared memory (``smem_bytes``).
 _MAX_OUT, _MAX_GRID = 64, 128
+_MAX_OUT_BF16, _MAX_GRID_BF16 = 128, 192
 _SMEM_LIMIT = 232448 - 2048
+_SMS = 132  # the H100's SMs: one bf16 block each (384 threads, ~227 KB)
+_SLOT = 128 * 64 * 2  # one weight slot of the bf16 ring: 128 rows x 64
 
 
 def _check(x: torch.Tensor, w1, b1, w2, b2, w3, b3, dilation: int
@@ -120,25 +125,34 @@ def bottleneck_weights(w1, b1, w2, b2, w3, b3, dtype: torch.dtype,
                        device: torch.device) -> Tuple[torch.Tensor, ...]:
     """K3's weights as its C entry reads them, contiguous on ``device`` in
     ``dtype`` (x's), with the biases in f32 (zeros for None).  bf16 (the
-    tensor-core path) takes them [output][input]: W1 (cm, cin),
-    W2 (9, cm_out, cm_in), W3 (cin, cm); f32 takes them [input][output]:
-    W1 (cin, cm), W2 (9, cm_in, cm_out), W3 (cm, cin)."""
+    wgmma path) takes them [output][input] and zero-padded, cin and cm
+    rounded up to cinp and cmp, multiples of 64: W1 (cmp, cinp),
+    W2 (9, cmp_out, cmp_in), W3 (cinp, cmp); f32 takes them
+    [input][output]: W1 (cin, cm), W2 (9, cm_in, cm_out), W3 (cm, cin)."""
     cm, cin = int(w1.shape[0]), int(w1.shape[1])
     w1k = w1.to(device, dtype).reshape(cm, cin)
     w3k = w3.to(device, dtype).reshape(cin, cm)
     w2k = w2.to(device, dtype)
-    if dtype == torch.bfloat16:
-        w2k = w2k.permute(2, 3, 0, 1)
-    else:
-        w1k, w3k, w2k = w1k.t(), w3k.t(), w2k.permute(2, 3, 1, 0)
 
     def bias(b, k):
         return (torch.zeros(k, dtype=torch.float32, device=device)
                 if b is None else b.to(device, torch.float32).contiguous())
 
-    return (w1k.contiguous(), bias(b1, cm),
-            w2k.reshape(9, cm, cm).contiguous(), bias(b2, cm),
-            w3k.contiguous(), bias(b3, cin))
+    biases = bias(b1, cm), bias(b2, cm), bias(b3, cin)
+    if dtype != torch.bfloat16:
+        return (w1k.t().contiguous(), biases[0],
+                w2k.permute(2, 3, 1, 0).reshape(9, cm, cm).contiguous(),
+                biases[1], w3k.t().contiguous(), biases[2])
+    # bf16: [output][input], zero-padded to whole 64-wide TMA boxes (the
+    # padding multiplies zeros only)
+    cmp, cinp = _round(cm, 64), _round(cin, 64)
+    p1 = torch.zeros((cmp, cinp), dtype=dtype, device=device)
+    p1[:cm, :cin] = w1k
+    p2 = torch.zeros((9, cmp, cmp), dtype=dtype, device=device)
+    p2[:, :cm, :cm] = w2k.permute(2, 3, 0, 1).reshape(9, cm, cm)
+    p3 = torch.zeros((cinp, cmp), dtype=dtype, device=device)
+    p3[:cin, :cm] = w3k
+    return p1, biases[0], p2, biases[1], p3, biases[2]
 
 
 def fused_bottleneck_launch(x: torch.Tensor, weights, *,
@@ -158,6 +172,15 @@ def fused_bottleneck_launch(x: torch.Tensor, weights, *,
                          "on a 16-byte boundary")
     n, cin, h, w = (int(s) for s in x.shape)
     cm, d = int(b1k.shape[0]), int(dilation)
+    if x.dtype == torch.bfloat16:
+        want = ((_round(cm, 64), _round(cin, 64)),
+                (9, _round(cm, 64), _round(cm, 64)),
+                (_round(cin, 64), _round(cm, 64)))
+        if any(tuple(t.shape) != sh or not t.is_contiguous()
+               for t, sh in zip((w1k, w2k, w3k), want)):
+            raise ValueError("fused_bottleneck: bf16 weights must be "
+                             "contiguous and padded as bottleneck_weights "
+                             "makes them")
     tile = _tile(h, w, d, cin, cm, x.element_size())
     if tile is None:
         raise ValueError(f"fused_bottleneck: cm={cm} does not fit the "
@@ -167,60 +190,117 @@ def fused_bottleneck_launch(x: torch.Tensor, weights, *,
         return out
     fn = c_entry("bottleneck", "dcfp_fused_bottleneck",
                  [_VP, _CI, _CI, _CI, _CI, _CI, _CL, _CL, _CL, _CL, _CI,
-                  _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _VP])
+                  _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+                  _VP])
     run_c_entry(fn, x.device, "fused_bottleneck", x.data_ptr(),
                 int(x.dtype == torch.bfloat16), n, cin, h, w, *x.stride(),
                 cm, d, w1k.data_ptr(), b1k.data_ptr(), w2k.data_ptr(),
                 b2k.data_ptr(), w3k.data_ptr(), b3k.data_ptr(),
-                out.data_ptr(), tile[0], tile[1])
+                out.data_ptr(), *tile)
     return out
 
 
-def smem_bytes(r: int, s: int, cm: int, itemsize: int) -> int:
-    """Dynamic shared memory of csrc/bottleneck.cu for an r x s tile:
-    staging buffers, then t1 on the (r+2) x (s+2) grid and t2 on the
-    tile.  bf16 (tensor cores): two 128 x 72 bf16 staging buffers, rows
-    padded to 16 and of ``cm`` rounded up to 16, plus 8.  f32: 32 x 128
-    and 32 x 129 floats, rows of ``cm`` rounded up to 32, plus 1."""
+def smem_bytes(r: int, s: int, cm: int, itemsize: int,
+               stages: int = 2) -> int:
+    """Dynamic shared memory of csrc/bottleneck.cu for an r x s tile.
+
+    bf16 (wgmma; ``mma_geom`` in the source): 1024 bytes of alignment
+    slack, ``stages`` 16 KB weight slots, t1 on the grid (Qp rows of
+    cmp + 8 bf16; Qp and Pp are the grid's and the tile's pixels rounded
+    up to 64, cmp is cm rounded up to 64), whose room conv3's epilogue
+    reuses (Pp x 256 bytes, if more), then t2 on the tile (Pp rows
+    of cmp bf16, in 64-channel blocks) or, while conv1 runs, the x ring
+    (``stages`` x Qp rows of 128 bytes), whichever is larger, then the
+    barriers and the pixel tables.
+    f32: 32 x 128 and 32 x 129 floats of staging, then t1 on the grid and
+    t2 on the tile, rows of cm rounded up to 32, plus 1."""
     grid, out = (r + 2) * (s + 2), r * s
     if itemsize == 2:
-        ldt = _round(cm, 16) + 8
-        return 2 * (2 * 128 * 72 + (_round(grid, 16) + _round(out, 16))
-                    * ldt)
+        qp, pp, cmp = _round(grid, 64), _round(out, 64), _round(cm, 64)
+        return (1024 + stages * _SLOT + max(qp * (cmp + 8) * 2, pp * 256)
+                + max(pp * cmp * 2, stages * qp * 128)
+                + 16 * stages + 8 * (qp + pp))
     ldt = _round(cm, 32) + 1
     return 4 * (32 * 128 + 32 * 129 + (grid + out) * ldt)
 
 
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m)
+
+
 def _round(n: int, m: int) -> int:
-    return -(-n // m) * m
+    return _ceil(n, m) * m
+
+
+def tiles_per_axis(size: int, d: int, t: int) -> int:
+    """Tiles of ``t`` outputs spaced by ``d`` that cover an axis of
+    ``size`` pixels: each of the d residue classes, holding
+    ceil((size - res) / d) pixels, takes whole tiles of its own."""
+    return sum(_ceil(_ceil(size - res, d), t) for res in range(min(d, size)))
+
+
+def _bf16_tile_cost(h, w, d, cin, cm, r, s):
+    """The bf16 kernel's time model for an r x s tile, in multiply-adds.
+
+    Each stage of the ring costs the larger of its tensor-core work and
+    its bytes from L2 (90 multiply-adds a byte: an SM's share of the
+    tensor-core rate over its share of ~5.5 TB/s of L2), on whole 64-row
+    m-tiles and 128-channel passes; every block runs its tile's stages in
+    turn, one block an SM, so the time is the waves of blocks times one
+    block's cost.  Returns (time, total work)."""
+    qp, pp = _round((r + 2) * (s + 2), 64), _round(r * s, 64)
+    cmp, cinp = _round(cm, 64), _round(cin, 64)
+    p1, p3 = _ceil(cmp, 128), _ceil(cinp, 128)
+
+    def stages(n, macs, nbytes):
+        return n * max(macs, 90 * nbytes)
+
+    block = (stages(p1 * cinp // 64, qp * 128 * 64, _SLOT + qp * 128)
+             + stages(p1 * 9 * cmp // 64, pp * 128 * 64, _SLOT)
+             + stages(p3 * cmp // 64, pp * 128 * 64, _SLOT))
+    tiles = tiles_per_axis(h, d, r) * tiles_per_axis(w, d, s)
+    return _ceil(tiles, _SMS) * block, tiles * block
 
 
 @functools.lru_cache(maxsize=256)
 def _tile(h: int, w: int, d: int, cin: int, cm: int, itemsize: int
-          ) -> Optional[Tuple[int, int]]:
-    """The (R, S) output tile of csrc/bottleneck.cu with the least work.
+          ) -> Optional[Tuple[int, int, int]]:
+    """(R, S, stages): the output tile of csrc/bottleneck.cu and, for
+    bf16, the slots of its ring (0 for f32); None if no tile fits.
 
     A tile holds R x S output pixels spaced by the dilation d (rows
     y0, y0+d, ..., columns likewise), so its dilated 3x3 taps fall on an
-    (R+2) x (S+2) grid of t1 that is computed once per tile.  The work
-    counted is what the kernel does: it runs conv1 on the grid's pixels
-    and the 3x3 and the last 1x1 on the tile's, each rounded up to whole
-    mma tiles of 16 rows (bf16) or rows of 32 lanes (f32), on every tile,
-    ragged ones included.  None if no tile fits in shared memory."""
+    (R+2) x (S+2) grid of t1 that is computed once per tile.  bf16 takes
+    the tile with the least modelled time (``_bf16_tile_cost``), then the
+    least work, then the most outputs, and as many ring slots (up to 4)
+    as shared memory holds.  f32 takes the least work as the kernel does
+    it: conv1 on the grid's pixels and the 3x3 and the last 1x1 on the
+    tile's, each rounded up to rows of 32 lanes, on every tile."""
     best, best_key = None, None
-    for r in range(1, 17):
-        for s in range(1, 17):
-            if (r * s > _MAX_OUT or (r + 2) * (s + 2) > _MAX_GRID
+    bf16 = itemsize == 2
+    max_out, max_grid = ((_MAX_OUT_BF16, _MAX_GRID_BF16) if bf16
+                         else (_MAX_OUT, _MAX_GRID))
+    side = max_out if bf16 else 16
+    for r in range(1, side + 1):
+        for s in range(1, min(side, max_out // r) + 1):
+            if ((r + 2) * (s + 2) > max_grid
                     or smem_bytes(r, s, cm, itemsize) > _SMEM_LIMIT):
                 continue
-            tiles = (d * math.ceil(math.ceil(h / d) / r)
-                     * d * math.ceil(math.ceil(w / d) / s))
-            step = 16 if itemsize == 2 else 32
-            grid_rows = _round((r + 2) * (s + 2), step)
-            out_rows = _round(r * s, step)
-            work = tiles * (grid_rows * cin * cm
-                            + out_rows * (9 * cm * cm + cm * cin))
-            key = (work, -r * s)
+            if bf16:
+                t, work = _bf16_tile_cost(h, w, d, cin, cm, r, s)
+                key = (t, work, -r * s)
+            else:
+                tiles = (d * math.ceil(math.ceil(h / d) / r)
+                         * d * math.ceil(math.ceil(w / d) / s))
+                work = tiles * (_round((r + 2) * (s + 2), 32) * cin * cm
+                                + _round(r * s, 32) * (9 * cm * cm + cm * cin))
+                key = (work, -r * s)
             if best_key is None or key < best_key:
                 best, best_key = (r, s), key
-    return best
+    if best is None:
+        return None
+    if not bf16:
+        return best + (0,)
+    stages = max(n for n in (2, 3, 4)
+                 if smem_bytes(*best, cm, itemsize, n) <= _SMEM_LIMIT)
+    return best + (stages,)

@@ -68,8 +68,8 @@ def tiled_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Every row is computed for any M (the TPU kernel writes only
     M // 512 row tiles).
 
-    On CUDA the kernel's tiling needs contiguous a and b, K a multiple of
-    16 (int8) or 8 (bf16), N a multiple of 4 (int8) or 2 (bf16), a on a
+    On CUDA the kernel needs contiguous a and b, K a multiple of 16
+    (int8) or 8 (bf16), N a multiple of 4 (int8) or 2 (bf16), a on a
     16-byte and b on a 4-byte boundary; anything else raises ValueError
     before a launch."""
     _mm_check(a, b)
@@ -80,9 +80,18 @@ def tiled_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tiled_mm_launch(a, b)
 
 
-def tiled_mm_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One launch of K5 on CUDA ``a`` and ``b``, after the kernel's
-    alignment checks."""
+# csrc/int8_mm.cu's block tile: 128 rows x 64 columns of out
+MM_TILE = (128, 64)
+
+
+def mm_launch_plan(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The checks of :func:`tiled_mm_launch`, raising ValueError on what
+    the kernel cannot take, and how csrc/int8_mm.cu runs ``a @ b``: its
+    grid of 128 x 64 output tiles, and whether b is first transposed to
+    bt (N, K).  s8 wgmma takes B only K-major, so int8 b always is; bf16
+    b is read in place (MN-major) when TMA can read it, i.e. its rows are
+    a multiple of 16 bytes (N % 8 == 0) and it starts on a 16-byte
+    boundary."""
     _mm_check(a, b)
     m, k = (int(s) for s in a.shape)
     n = int(b.shape[1])
@@ -98,16 +107,32 @@ def tiled_mm_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.data_ptr() % 16 or b.data_ptr() % 4:
         raise ValueError("tiled_mm: a must start on a 16-byte and b on a "
                          "4-byte boundary")
+    bm, bn = MM_TILE
+    return {"grid": (-(-n // bn), -(-m // bm)),
+            "transpose_b": (a.dtype == torch.int8 or n % 8 != 0
+                            or b.data_ptr() % 16 != 0)}
+
+
+def tiled_mm_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of K5 on CUDA ``a`` and ``b``, after the kernel's
+    alignment checks.  int8 b, and bf16 b that TMA cannot read, go through
+    a scratch bt (N, K) that the C entry fills before the product."""
+    plan = mm_launch_plan(a, b)
+    m, k = (int(s) for s in a.shape)
+    n = int(b.shape[1])
     out_dtype = torch.int32 if a.dtype == torch.int8 else torch.float32
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
     if k == 0:
         return out.zero_()
+    bt = (torch.empty((n, k), dtype=a.dtype, device=a.device)
+          if plan["transpose_b"] else None)
     fn = c_entry("int8_mm", "dcfp_tiled_mm",
-                 [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP])
+                 [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP])
     run_c_entry(fn, a.device, "tiled_mm", a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), int(a.dtype == torch.bfloat16), m, n, k)
+                None if bt is None else bt.data_ptr(), out.data_ptr(),
+                int(a.dtype == torch.bfloat16), m, n, k)
     return out
 
 

@@ -1,0 +1,69 @@
+"""Time the port's K3 and K5 in two checkouts of the repo, in turns, on one
+CUDA card: A, B, B, A.
+
+    python3 pair_times.py PARENT_DIR CHANGE_DIR [--out FILE]
+
+Each turn is a fresh process in that checkout, which builds its kernels
+and times them with its own ``chip_smoke.py`` helpers (``time_k5`` at
+1024^3 and 64x4096x1024 in int8 and bf16; ``time_k3`` at the pruned
+R101's layer3 and layer4 shapes), so both sides use the same inputs,
+timers and yardsticks.  Prints one JSON line per turn and, last, the
+card's name and power limit; exits non-zero without a card.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+
+TURN = r"""
+import json, torch
+import chip_smoke as cs
+cs.phase_device()
+cs.phase_build()
+gen = torch.Generator(device="cuda").manual_seed(6)
+out = {}
+for m, k, n in ((1024, 1024, 1024), (64, 4096, 1024)):
+    for dt in (torch.int8, torch.bfloat16):
+        out[f"k5 {m}x{k}x{n} {str(dt)[6:]}"] = cs.time_k5(
+            *cs._k5_inputs(m, k, n, dt, gen))
+gen = torch.Generator(device="cuda").manual_seed(5)
+for name, (n, h, w, cin, cm, d) in cs.K3_DEPLOY.items():
+    x, args = cs._bottleneck_inputs(n, h, w, cin, cm, gen, torch.bfloat16,
+                                    (0.5, 0.04, 0.08, 0.08, 0.1))
+    x = x.contiguous(memory_format=torch.channels_last)
+    out[f"k3 {name}"] = cs.time_k3(name, x, args, d)
+print("PAIR " + json.dumps(out), flush=True)
+"""
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("a")
+    ap.add_argument("b")
+    ap.add_argument("--out", default=None,
+                    help="also append every turn's full output here")
+    opts = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        raise SystemExit("pair_times: no CUDA card (nvidia-smi failed)")
+    log = open(opts.out, "a") if opts.out else None
+    for turn, tree in enumerate((opts.a, opts.b, opts.b, opts.a)):
+        proc = subprocess.run([sys.executable, "-c", TURN], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if log:
+            log.write(f"==== turn {turn} {tree}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            raise SystemExit(f"pair_times: turn {turn} in {tree} failed:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        line = next(x for x in proc.stdout.splitlines()
+                    if x.startswith("PAIR "))
+        print(json.dumps({"turn": turn, "tree": tree,
+                          "times": json.loads(line[5:])}), flush=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+if __name__ == "__main__":
+    main()

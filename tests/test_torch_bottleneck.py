@@ -18,7 +18,7 @@ from dcfp_tpu_torch.ops.bottleneck import (_tile, bottleneck_weights,
                                            fused_bottleneck,
                                            fused_bottleneck_launch,
                                            fused_bottleneck_plain,
-                                           smem_bytes)
+                                           smem_bytes, tiles_per_axis)
 
 
 def _weights(rng, cin, cm, bias=True):
@@ -146,22 +146,97 @@ def test_launch_rejects_misaligned_bf16():
         fused_bottleneck_launch(x, weights, dilation=1)
 
 
+# the kernel's own launches: chip_smoke.py's K3 cases, the pruned R101's
+# layer3/layer4 shapes, and ragged maps with dilations up to 16
+_K3_SHAPES = [
+    (12, 19, 2, 256, 128), (13, 17, 2, 256, 128), (16, 33, 1, 128, 128),
+    (9, 21, 4, 256, 128), (11, 13, 3, 48, 24), (20, 37, 8, 64, 32),
+    (21, 40, 16, 64, 32), (129, 257, 2, 1024, 128), (129, 257, 16, 2048, 256),
+    (7, 5, 16, 64, 32), (33, 1, 3, 64, 64), (1, 50, 5, 64, 64),
+    (100, 67, 16, 256, 256), (23, 29, 5, 52, 40)]
+
+
+def _owned(size, d, t):
+    """Output rows (or columns) of each block along one axis, with the
+    kernel's index map: block ``res * n + k`` owns ``res + d * (k * t + i)``
+    for i < t, and returns at once if its first one lies past the map."""
+    n = -(-(-(-size // d)) // t)  # tiles per residue class in the grid
+    blocks = []
+    for res in range(d):
+        for k in range(n):
+            if res + d * k * t >= size:
+                continue  # the early return
+            blocks.append([res + d * (k * t + i) for i in range(t)
+                           if res + d * (k * t + i) < size])
+    return blocks
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("h,w,d,cin,cm", _K3_SHAPES)
+def test_tiles_cover_every_output_once(h, w, d, cin, cm, itemsize):
+    """The planned tiles cover every output pixel exactly once, and the
+    blocks that do work are the ``tiles_per_axis`` the time model counts."""
+    r, s, _ = _tile(h, w, d, cin, cm, itemsize)
+    rows, cols = _owned(h, d, r), _owned(w, d, s)
+    assert sorted(y for b in rows for y in b) == list(range(h))
+    assert sorted(x for b in cols for x in b) == list(range(w))
+    if itemsize == 2:
+        assert len(rows) == tiles_per_axis(h, d, r)
+        assert len(cols) == tiles_per_axis(w, d, s)
+
+
 @pytest.mark.parametrize("h,w,d,cin,cm,itemsize", [
     (129, 257, 2, 1024, 128, 2),    # pruned R101 layer3, bf16
     (129, 257, 16, 2048, 256, 2),   # pruned R101 layer4, bf16
     (129, 257, 16, 2048, 256, 4),   # the same in f32
-    (13, 17, 2, 256, 128, 4)])      # tests/test_bottleneck.py, f32
+    (13, 17, 2, 256, 128, 4),       # tests/test_bottleneck.py, f32
+    (11, 13, 3, 48, 24, 2)])        # cm and cin off the 64-wide boxes
 def test_tile_fits_the_kernel(h, w, d, cin, cm, itemsize):
-    """The CUDA kernel's tile: within its lane limits and shared memory,
-    and, with the kernel's own index map (block ``ry * n + t`` owns rows
-    ``ry + d * (t * R + r)``), every output row and column belongs to
-    exactly one tile position."""
-    r, s = _tile(h, w, d, cin, cm, itemsize)
-    assert r * s <= 64 and (r + 2) * (s + 2) <= 128
-    assert smem_bytes(r, s, cm, itemsize) <= 232448 - 2048
+    """The CUDA kernel's tile: within its pixel limits (bf16 wgmma: 128
+    outputs on a grid of 192; f32: 64 on 128) and shared memory with the
+    ring's slots, and, with the kernel's own index map (block
+    ``ry * n + t`` owns rows ``ry + d * (t * R + r)``), every output row
+    and column belongs to exactly one tile position.  At the pruned
+    R101's shapes the bf16 tiles are larger than the mma.sync kernel's
+    64 outputs."""
+    r, s, stages = _tile(h, w, d, cin, cm, itemsize)
+    if itemsize == 2:
+        assert r * s <= 128 and (r + 2) * (s + 2) <= 192
+        assert 2 <= stages <= 4
+        if h > 100:
+            assert r * s > 64
+    else:
+        assert r * s <= 64 and (r + 2) * (s + 2) <= 128 and stages == 0
+    assert smem_bytes(r, s, cm, itemsize, max(stages, 2)) <= 232448 - 2048
     for size, t in ((h, r), (w, s)):
         n = -(-(-(-size // d)) // t)  # tiles per residue class
         owned = [res + d * (k * t + i) for res in range(d) for k in range(n)
                  for i in range(t)]
         owned = [o for o in owned if o < size]
         assert sorted(owned) == list(range(size))
+
+
+def test_bf16_weights_padded_for_tma():
+    """bf16 weights are [output][input], zero-padded to multiples of 64
+    (whole TMA boxes); the padding holds zeros and the rest the weights.
+    f32 keeps [input][output], unpadded."""
+    rng = np.random.default_rng(3)
+    cin, cm = 48, 24
+    w1, w2, w3 = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                  for sh in ((cm, cin, 1, 1), (cm, cm, 3, 3), (cin, cm, 1, 1)))
+    p1, b1, p2, b2, p3, b3 = bottleneck_weights(w1, None, w2, None, w3, None,
+                                                torch.bfloat16, "cpu")
+    assert p1.shape == (64, 64) and p2.shape == (9, 64, 64)
+    assert p3.shape == (64, 64)
+    assert b1.shape == (cm,) and b3.shape == (cin,)
+    assert torch.equal(p1[:cm, :cin], w1.reshape(cm, cin).bfloat16())
+    assert torch.equal(p2[:, :cm, :cm], w2.permute(2, 3, 0, 1)
+                       .reshape(9, cm, cm).bfloat16())
+    assert torch.equal(p3[:cin, :cm], w3.reshape(cin, cm).bfloat16())
+    for p, (r, c) in ((p1, (cm, cin)), (p3, (cin, cm))):
+        assert not p[r:].any() and not p[:, c:].any()
+    assert not p2[:, cm:].any() and not p2[:, :, cm:].any()
+    f1, _, f2, _, f3, _ = bottleneck_weights(w1, None, w2, None, w3, None,
+                                             torch.float32, "cpu")
+    assert f1.shape == (cin, cm) and f2.shape == (9, cm, cm)
+    assert f3.shape == (cm, cin)

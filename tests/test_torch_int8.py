@@ -246,3 +246,35 @@ def test_chain_smem(cm, fits):
     """K6's shared memory at the pruned layer3 (Cm 128) and the probe's
     (Cm 256) shapes fits a block's 227 KB; Cm 512 does not."""
     assert (port.chain_smem_bytes(cm) <= 232448) == fits
+
+
+@pytest.mark.parametrize("m,k,n,dtype,offset", [
+    (1024, 1024, 1024, "int8", 0),     # the probe's 1024^3
+    (1024, 1024, 1024, "bfloat16", 0),
+    (1000, 1008, 200, "int8", 0),      # 200-byte b rows: no TMA stride
+    (1000, 1008, 200, "bfloat16", 0),
+    (64, 4096, 1024, "int8", 0),       # skinny M
+    (64, 4096, 1024, "bfloat16", 0),
+    (130, 16, 4, "int8", 4),           # N % 4, K 16 bytes, b off 16 bytes
+    (70, 8, 6, "bfloat16", 0),         # N % 2 only, K 16 bytes
+    (33, 24, 64, "bfloat16", 2)])      # b on a 4-byte boundary only
+def test_mm_plan_admits_and_covers(m, k, n, dtype, offset):
+    """Every shape and alignment the launch took before the wgmma
+    redesign still passes its checks, and the planned grid of 128 x 64
+    tiles covers M x N exactly (>= 128 blocks at 1024^2, for 132 SMs);
+    b goes through the transpose when TMA cannot read it, and always for
+    int8 (s8 wgmma takes B only K-major)."""
+    dt = getattr(torch, dtype)
+    a = torch.zeros(m, k, dtype=dt)
+    buf = torch.zeros(k * n + 16, dtype=dt)
+    start = -buf.data_ptr() % 16 // buf.element_size() + offset
+    b = buf[start:start + k * n].view(k, n)
+    assert b.data_ptr() % 16 == offset * buf.element_size() % 16
+    plan = port.mm_launch_plan(a, b)
+    gx, gy = plan["grid"]
+    bm, bn = port.MM_TILE
+    assert (gx - 1) * bn < n <= gx * bn and (gy - 1) * bm < m <= gy * bm
+    if (m, n) == (1024, 1024):
+        assert gx * gy >= 128
+    assert plan["transpose_b"] == (dtype == "int8" or n % 8 != 0
+                                   or b.data_ptr() % 16 != 0)
