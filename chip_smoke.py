@@ -35,7 +35,9 @@ exits non-zero without them.  Phases, each of which raises on failure:
    bf16 ulp + 1e-5 x sum|x w| of the plain f32 result on 40x61x256 and on
    the served pruned R101's layer4 output with its own ASPP weights,
    beside the three cuDNN branches); K3, K5 (both B routes), K6 and K4
-   also on shapes off every tile of theirs;
+   also on shapes off every tile of theirs (K6 with Cm 80 and W below a
+   tile; K4 with W below a tile and with tiles whose d = 36 branch keeps
+   only its centre tap);
 7. one JSON line with every ported kernel: launches on its path, its
    check, its time beside its bound, plain and library times;
 8. last line: ``{"ok": true, "device": {...}}``.
@@ -154,6 +156,10 @@ def phase_build():
                 log(f"[build]   {line.split(chr(39))[1]}")  # mangled name
             elif "Used" in line or "spill" in line:
                 log(f"[build]     {line.strip()}")
+        fences = b.log.count("(C7519)")
+        if fences:  # ptxas fences around wgmma register operands
+            log(f"[build]   {fences} ptxas C7519 lines (warpgroup.arrive "
+                "injected)")
 
 
 # ---------------------------------------------------------------------------
@@ -787,8 +793,12 @@ K6_SCALES = (2e-4, 2e-4, 2e-4)
 K6_CHECK_SCALES = (4e-3, 2e-3, 1e-3)
 K6_BLOCKS = 8
 # off every tile of the kernel: H0 and W ragged, Cin, Cm and Cout not
-# multiples of its 64-byte steps or 128-channel passes
+# multiples of its 128-byte stages or 128-channel passes
 K6_ODD = (7, 45, 48, 48, 40)
+# Cm 80 (a multiple of the entry's 16, off the 128-byte row), W below one
+# tile's width (the planner's 6 x 6 tile spans 12 columns), Cout off the
+# 16-byte output runs
+K6_EDGE = (9, 11, 64, 80, 42)
 
 
 def _k6_inputs(h0, w, cin, cm, cout, seed):
@@ -861,13 +871,17 @@ def phase_k6():
     log(f"[k6] {K6_BLOCKS}-block chain on the probe's inputs, check scales:"
         f" the int8 carry bit-equal to the plain loop "
         f"({check['blocks']['distinct_values']} distinct values)")
-    odd = _k6_inputs(*K6_ODD, 3)
-    ref = int8.chain_int8_plain(*odd, K6_CHECK_SCALES)
-    _bit_equal(int8.chain_int8(*odd, K6_CHECK_SCALES), ref, "K6 odd shape")
-    check["odd shape"] = {"shape": list(K6_ODD), "bit_equal": True,
-                          "nonzero_share": float((ref != 0).float().mean())}
-    log(f"[k6] odd shape {K6_ODD} (H0, W, Cin, Cm, Cout): bit-equal, "
-        f"nonzero {check['odd shape']['nonzero_share']:.4f}")
+    for seed, (what, shape) in enumerate((("odd shape", K6_ODD),
+                                          ("edge shape", K6_EDGE)), 3):
+        odd = _k6_inputs(*shape, seed)
+        ref = int8.chain_int8_plain(*odd, K6_CHECK_SCALES)
+        _bit_equal(int8.chain_int8(*odd, K6_CHECK_SCALES), ref, f"K6 {what}")
+        check[what] = {"shape": list(shape), "bit_equal": True,
+                       "tile": list(int8.chain_tile(*shape)),
+                       "nonzero_share": float((ref != 0).float().mean())}
+        log(f"[k6] {what} {shape} (H0, W, Cin, Cm, Cout), tile "
+            f"{check[what]['tile']}: bit-equal, nonzero "
+            f"{check[what]['nonzero_share']:.4f}")
     times = {name: time_k6(name, args) for name, args in inputs.items()}
     return launches, check, times
 
@@ -882,9 +896,14 @@ def time_k6(name, args):
     cm, cout = w1.shape[1], w3.shape[1]
     h0, d = hp - 2 * int8.D, int8.D
     prepped = int8.chain_int8_weights(w1, w2, w3)
-    ms = cuda_ms(lambda: int8.chain_int8_launch(x8, prepped, K6_SCALES), 20)
+    ms = cuda_ms(lambda: int8.chain_int8_launch(x8, prepped, K6_SCALES), 30,
+                 5)
+    # the same launches in a CUDA graph: at ~0.1 ms a launch, the wrapper's
+    # host time can show in the events' time
+    graph = graph_ms(lambda: int8.chain_int8_launch(x8, prepped, K6_SCALES),
+                     10, 3)
     wrapper_ms = cuda_ms(lambda: int8.chain_int8(x8, w1, w2, w3, K6_SCALES),
-                         20)
+                         30, 5)
     plain_ms = cuda_ms(
         lambda: int8.chain_int8_plain(x8, w1, w2, w3, K6_SCALES), 5, 1)
     xb = (x8.float() * 0.01).to(torch.bfloat16)
@@ -904,14 +923,16 @@ def time_k6(name, args):
     n_bytes = x8.numel() + w1.numel() + w2.numel() + w3.numel() \
         + h0 * w * cout * 2
     bd = bound(n_bytes, n_ops, INT8_OPS_PER_S)
-    log(f"[k6] {name} {tuple(x8.shape)} {cin}->{cm}->{cout}: kernel "
-        f"{ms:.4f} ms ({n_ops / ms / 1e9:.1f} TOP/s; wrapper with weight "
+    log(f"[k6] {name} {tuple(x8.shape)} {cin}->{cm}->{cout}, tile "
+        f"{list(int8.chain_tile(h0, w, cin, cm, cout))}: kernel "
+        f"{ms:.4f} ms (in a CUDA graph {graph:.4f}; "
+        f"{n_ops / ms / 1e9:.1f} TOP/s; wrapper with weight "
         f"prep {wrapper_ms:.4f}), plain {plain_ms:.4f} ms, library (bf16 "
         f"cuDNN chain) {library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by"
         f" {bd['bound_by']} ({bd['bytes']} B, {bd['ops']} ops)")
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"]}
+    return {"ms": ms, "graph_ms": graph, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
 
 
 # ---------------------------------------------------------------------------
@@ -919,7 +940,12 @@ def time_k6(name, args):
 # ---------------------------------------------------------------------------
 
 K4_STAGE_N = (40, 61, 256, 128)  # exp_aspp.py stage_n: H, W, Cin, Cout
-K4_ODD = (23, 37, 200, 72)  # Cin off the 32-channel step, Cout off 128
+K4_ODD = (23, 37, 200, 72)  # Cin off the 64-channel box, Cout off 128
+# W below one tile's width, Cin 72 off the 64-channel box
+K4_NARROW = (20, 9, 72, 64)
+# some tiles of the d = 36 branch keep only their centre tap, others up to
+# 4; two 128-channel blocks, the second partial
+K4_SPARSE = (40, 50, 136, 192)
 
 
 def aspp_case(graph, pparams, pstate, dev_params, image):
@@ -1016,17 +1042,32 @@ def phase_k4(case):
         f"{float(got_b.float().abs().max()):.4g}), {miss_b} of "
         f"{got_b.numel()} values beyond 1 bf16 ulp alone (the cuDNN "
         f"branches: {lib_miss}); vs the cuDNN branches max|diff| {ldiff:.3g}")
-    h, w, cin, cout = K4_ODD
-    xo = (torch.randn((h, w, cin), device="cuda", generator=gen) * 0.5).to(
-        torch.bfloat16)
-    wo = (torch.randn((27, cin, cout), device="cuda", generator=gen)
-          * 0.02).to(torch.bfloat16)
-    err_o, miss_o = _aspp_ref_check(aspp.aspp_fused(xo, wo), xo, wo,
-                                    "K4 odd shape")
-    log(f"[k4] odd shape {K4_ODD} (H, W, Cin, Cout): max_abs_err "
-        f"{err_o:.3g}, {miss_o} values beyond 1 bf16 ulp alone")
+    odd = {}
+    for what, shape in (("odd", K4_ODD), ("narrow", K4_NARROW),
+                        ("sparse", K4_SPARSE)):
+        h, w, cin, cout = shape
+        r, s, _ = aspp.aspp_tile(h, w, cin, cout)
+        live = [len(aspp.live_taps(y0, x0, r, s, h, w, d))
+                for y0 in range(0, h, r) for x0 in range(0, w, s)
+                for d in aspp.DILATIONS]
+        if what == "narrow" and not w < s:
+            raise AssertionError(f"K4 {shape}: tile {r}x{s} is narrower "
+                                 "than the image")
+        if what == "sparse" and min(live) != 1:
+            raise AssertionError(f"K4 {shape}: every tile keeps an "
+                                 "off-centre tap")
+        xo = (torch.randn((h, w, cin), device="cuda", generator=gen)
+              * 0.5).to(torch.bfloat16)
+        wo = (torch.randn((27, cin, cout), device="cuda", generator=gen)
+              * 0.02).to(torch.bfloat16)
+        err, miss = _aspp_ref_check(aspp.aspp_fused(xo, wo), xo, wo,
+                                    f"K4 {what} shape")
+        odd[f"{what}_shape_max_abs_err"] = err
+        log(f"[k4] {what} shape {shape} (H, W, Cin, Cout), tile {r}x{s}, "
+            f"live taps per (tile, branch) {min(live)}..{max(live)}: "
+            f"max_abs_err {err:.3g}, {miss} values beyond 1 bf16 ulp alone")
     check = {"stage_n_max_abs_err": err_n, "stage_b_max_abs_err": err_b,
-             "odd_shape_max_abs_err": err_o,
+             **odd,
              "stage_n_beyond_1_ulp": miss_n, "stage_b_beyond_1_ulp": miss_b,
              "cudnn_branches_beyond_1_ulp": lib_miss,
              "stage_b_shape": list(xb.shape) + [int(wb.shape[2])],
@@ -1044,8 +1085,8 @@ def time_k4(x, wts, kern_cl):
     h, w, cin = x.shape
     cout = wts.shape[2]
     wt = aspp.aspp_kernel_weights(wts)
-    ms = cuda_ms(lambda: aspp.aspp_fused_launch(x, wt), 10, 2)
-    wrapper_ms = cuda_ms(lambda: aspp.aspp_fused(x, wts), 10, 2)
+    ms = cuda_ms(lambda: aspp.aspp_fused_launch(x, wt), 30, 5)
+    wrapper_ms = cuda_ms(lambda: aspp.aspp_fused(x, wts), 30, 5)
     plain_ms = cuda_ms(lambda: aspp.aspp_fused_plain(x, wts), 3, 1)
     with autotuned():
         library_ms = cuda_ms(lambda: aspp.aspp_convs(x, kern_cl), 20)
@@ -1057,7 +1098,8 @@ def time_k4(x, wts, kern_cl):
     full = 2 * h * w * 27 * cin * cout
     n_bytes = (x.numel() + wts.numel() + h * w * 3 * cout) * 2
     bd = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    log(f"[k4] stage B {tuple(x.shape)} -> 3x{cout} bf16: kernel {ms:.4f} ms "
+    log(f"[k4] stage B {tuple(x.shape)} -> 3x{cout} bf16, tile "
+        f"{list(aspp.aspp_tile(h, w, cin, cout))}: kernel {ms:.4f} ms "
         f"({full / ms / 1e9:.1f} TFLOP/s counting all taps; wrapper with "
         f"weight prep {wrapper_ms:.4f}), plain {plain_ms:.4f} ms, library "
         f"(3 cuDNN convs, ReLU, cat) {library_ms:.4f} ms, bound "

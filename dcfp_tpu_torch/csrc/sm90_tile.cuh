@@ -1,10 +1,12 @@
 // Hopper (sm_90a) pieces shared by the port's wgmma kernels: K5, the
-// tiled matmul (int8_mm.cu), and K3's bf16 path (bottleneck.cu).
+// tiled matmul (int8_mm.cu), K3's bf16 path (bottleneck.cu), K6, the int8
+// chain (int8_chain.cu), and K4, the fused ASPP branches (aspp.cu).
 //
-// Neither kernel replaces a TPU kernel by itself; this header holds what
-// both need to leave mma.sync behind.  The TPU kernels they replace
-// (tools/exp_int8.py `_mm_kernel`, dcfp_tpu/ops/bottleneck.py `_kernel`)
-// stream their operands through VMEM with BlockSpecs; on the H100 the
+// No kernel replaces a TPU kernel by itself; this header holds what they
+// share.  The TPU kernels they replace (tools/exp_int8.py `_mm_kernel`
+// and `_chain_kernel`, dcfp_tpu/ops/bottleneck.py `_kernel`,
+// tools/exp_aspp.py `_aspp_kernel`) stream their operands through VMEM
+// with BlockSpecs; on the H100 the
 // tensor cores reach their dense rate (989 TFLOP/s bf16, 1,979 TOP/s
 // int8) only through wgmma, fed from shared memory that the copy engine
 // keeps full.  So:
@@ -16,12 +18,16 @@
 //    into every library's name) stay as they were.  A map goes to the
 //    kernel as a `const __grid_constant__ CUtensorMap` parameter, so a
 //    CUDA graph captures it by value.
-//  - Device: a ring of full/empty mbarriers; TMA loads (2D and 3D) that
-//    complete on a full barrier; cp.async that arrive on one; wgmma
-//    shared-memory descriptors for the 128-byte swizzle that TMA writes;
-//    m64n64 wgmma issue helpers, bf16 -> f32 (k16, A from shared memory
-//    or from registers, B K-major or MN-major) and s8 -> s32 (k32, both
-//    K-major, the only form s8 has); the fence, commit and wait steps.
+//  - Device: a ring of full/empty mbarriers; TMA loads (2D and 3D, with
+//    signed coordinates: a box that reaches past any edge of the tensor,
+//    below 0 included, is zero-filled there) that complete on a full
+//    barrier; cp.async that arrive on one; wgmma shared-memory
+//    descriptors for the 128-byte swizzle that TMA writes; wgmma issue
+//    helpers, bf16 -> f32 (k16; m64n64 with A from shared memory or from
+//    registers, B K-major or MN-major; m64n128 from shared memory) and
+//    s8 -> s32 (k32, B K-major, the only form s8 has; m64n64 from shared
+//    memory, m64n128 with A from shared memory or from registers); the
+//    fence, commit and wait steps.
 //
 // Layouts.  A TMA box whose inner extent is 128 bytes, written with
 // CU_TENSOR_MAP_SWIZZLE_128B, puts row r of the box at byte r * 128 with
@@ -38,8 +44,8 @@
 // power limit 700.00 W, against the mma.sync versions in the same run):
 // K5 at 1024^3 0.0232 -> 0.0087 ms (int8) and 0.0423 -> 0.0078 ms (bf16);
 // K3 at the pruned R101's layer3 0.489 -> 0.236 ms and layer4 3.00 ->
-// 0.680 ms.  Both are still bound by their own pipelines, not by the card
-// (3-6x their bounds); the kernels' notes say where.
+// 0.680 ms.  K6 and K4: their own notes.  All are still bound by their
+// own pipelines, not by the card; the kernels' notes say where.
 
 #pragma once
 
@@ -186,7 +192,9 @@ struct Ring {
 };
 
 // TMA loads, global -> shared, completing on `bar`.  Coordinates in
-// elements, innermost first.
+// elements, innermost first, signed: elements of the box outside the
+// tensor (negative coordinates included) land as zeros, and the whole
+// box's bytes count towards the barrier's transaction.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -264,13 +272,15 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accumulator reads or writes across an
 // asynchronous wgmma (issue ... wait).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define SM90_D32                                                         \
@@ -314,15 +324,75 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
 }
 
 // d (64 x 64 s32) += A (64 x 32 s8) * B (32 x 64 s8), both K-major
-// descriptors; the accumulator layout of wgmma_bf16_ss.
+// descriptors; the accumulator layout of wgmma_bf16_ss.  With acc = 0
+// (the s8 helpers take it) the product overwrites d instead: a pass
+// starts so, rather than with zeros written into d.
 __device__ __forceinline__ void wgmma_s8_ss(int (&d)[32], uint64_t da,
-                                            uint64_t db) {
+                                            uint64_t db, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " SM90_D32
       ", %32, %33, p;\n}\n"
       : SM90_ACC32("+r", d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#define SM90_D64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "      \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_ACC64(c, d)                                                 \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]),         \
+      c(d[7]), c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), \
+      c(d[14]), c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]),        \
+      c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]),        \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]),        \
+      c(d[32]), c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]),        \
+      c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]),        \
+      c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]),        \
+      c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]),        \
+      c(d[56]), c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]),        \
+      c(d[62]), c(d[63])
+
+// d (64 x 128 f32, 64 a thread) += A (64 x 16 bf16) * B (16 x 128 bf16),
+// both K-major descriptors (B: 128 rows of 128 bytes, SBO 1024).  The
+// accumulator layout of wgmma_bf16_ss with j = 0 .. 15.
+__device__ __forceinline__ void wgmma_bf16_ss_n128(float (&d)[64],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_ACC64("+f", d)
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128 s32, 64 a thread) += A (64 x 32 s8) * B (32 x 128 s8), B a
+// K-major descriptor of 128 rows; the accumulator layout of
+// wgmma_bf16_ss_n128.  A from a descriptor, or (_rs) from registers: the
+// m16n8k32 s8 A fragment of rows 16w .. 16w + 15 in warp w, as ldmatrix
+// x4 loads a 16-row x 32-byte block (rows 0-7 and 8-15 of bytes 0-15,
+// then of bytes 16-31); CUTLASS's MMA_64x128x32_S32S8S8_RS_TN form.
+__device__ __forceinline__ void wgmma_s8_ss_n128(int (&d)[64], uint64_t da,
+                                                 uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64
+      ", %64, %65, p;\n}\n"
+      : SM90_ACC64("+r", d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64
+      ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : SM90_ACC64("+r", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 // Registers of a warpgroup role (all four warps together), sm_90a only.

@@ -19,12 +19,14 @@ Launches are counted in ``dcfp_tpu_torch.ops.kernels.LAUNCHES``.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dcfp_tpu_torch.ops.bottleneck import tiles_per_axis
 from dcfp_tpu_torch.ops.kernels import _CF, _CI, _VP, c_entry, run_c_entry
 
 D = 2  # the chain's dilation (layer3 at output stride 8)
@@ -212,46 +214,147 @@ def chain_int8_plain(x8: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return (a3.float() * s3t).to(torch.bfloat16).reshape(h0, w, cout)
 
 
+def _r128(n: int) -> int:
+    """n rounded up to whole 128-byte TMA box rows of int8."""
+    return -(-n // 128) * 128
+
+
+class ChainWeights(NamedTuple):
+    """K6's weights as its C entry reads them (:func:`chain_int8_weights`)
+    with the widths the padding hides."""
+    w1: torch.Tensor  # (Cmp, Cinp)
+    w2: torch.Tensor  # (9, Cmp_out, Cmp_in)
+    w3: torch.Tensor  # (Coutp, Cmp)
+    cm: int
+    cout: int
+
+
 def chain_int8_weights(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K6's weights as its C entry reads them, [output][input] and
-    contiguous: W1 (Cm, Cin), W2 (9, Cm_out, Cm_in), W3 (Cout, Cm)."""
-    return (w1.t().contiguous(), w2.transpose(1, 2).contiguous(),
-            w3.t().contiguous())
+                       ) -> ChainWeights:
+    """K6's weights as its C entry reads them: [output][input] (K-major,
+    the only B that s8 wgmma takes), zero-padded to whole 128-byte TMA
+    boxes, contiguous: W1 (Cmp, Cinp), W2 (9, Cmp_out, Cmp_in),
+    W3 (Coutp, Cmp), with Cin, Cm and Cout rounded up to multiples of
+    128.  The padding multiplies zeros only: y1 and y2 are 0 past Cm."""
+    cm, cout = int(w1.shape[1]), int(w3.shape[1])
+    return ChainWeights(_padded(w1.t()), _padded(w2.transpose(1, 2)),
+                        _padded(w3.t()), cm, cout)
 
 
-def chain_smem_bytes(cm: int) -> int:
-    """Dynamic shared memory of csrc/int8_chain.cu: four 128 x 80-byte
-    staging buffers for each operand, then y1 on the (4 + 2D) x (32 + 2D)
-    grid (rounded up to 16 rows) and y2 on the 128-pixel tile, rows of Cm
-    rounded up to 32 plus 16 bytes."""
-    ldy = -(-cm // 32) * 32 + 16
-    q = (4 + 2 * D) * (32 + 2 * D)
-    return 2 * 4 * 128 * 80 + (-(-q // 16) * 16 + 128) * ldy
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, its last two dims zero-padded to multiples of
+    128 (a copy either way)."""
+    shape = (*t.shape[:-2], _r128(t.shape[-2]), _r128(t.shape[-1]))
+    if tuple(t.shape) == shape:
+        return t.contiguous()
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[..., :t.shape[-2], :t.shape[-1]] = t
+    return out
 
 
-def chain_int8_launch(x8: torch.Tensor, weights, scales: Scales
-                      ) -> torch.Tensor:
+# csrc/int8_chain.cu's limits: an R x S tile of outputs (R*S <= 128) on its
+# (R+2) x (S+2) grid of y1 pixels (<= 192); 128 channels a pass and 128
+# bytes of K (one 16 KB weight slot) a stage
+_MAX_OUT, _MAX_GRID = 128, 192
+_SLOT = 128 * 128
+_SMS = 132  # the H100's SMs: one block each (384 threads, ~227 KB)
+
+
+def chain_smem_bytes(r: int, s: int, cm: int, stages: int = 2) -> int:
+    """Dynamic shared memory of csrc/int8_chain.cu (``geom`` there) for an
+    r x s tile: 1024 bytes of alignment slack, ``stages`` 16 KB weight
+    slots, y1 on the grid (Qp rows of Cmp + 16 bytes; Qp and Pp are the
+    grid's and the tile's pixels rounded up to 64, Cmp is Cm rounded up
+    to 128), whose room conv3's output buffers reuse (Pp x 256 bytes, if
+    more), then y2 on the tile (Pp rows of Cmp bytes) or, while conv1
+    runs, the x ring (``stages`` x Qp rows of 128 bytes), whichever is
+    larger, then the barriers and the pixel tables."""
+    qp = -(-(r + 2) * (s + 2) // 64) * 64
+    pp = -(-r * s // 64) * 64
+    cmp = _r128(cm)
+    return (1024 + stages * _SLOT + max(qp * (cmp + 16), pp * 256)
+            + max(pp * cmp, stages * qp * 128) + 16 * stages
+            + 8 * (qp + pp))
+
+
+def _chain_tile_cost(h0, w, cin, cm, cout, r, s):
+    """K6's time model for an r x s tile, in multiply-adds: each stage of
+    the ring costs the larger of its tensor-core work and its bytes from
+    L2 at 180 multiply-adds a byte (an SM's share of the int8 tensor-core
+    rate over its share of ~5.5 TB/s of L2), on whole 64-row m-tiles and
+    128-channel passes; one block an SM, so the time is the waves of
+    blocks times one block's cost.  Returns (time, total work)."""
+    qp = -(-(r + 2) * (s + 2) // 64) * 64
+    pp = -(-r * s // 64) * 64
+    cmp, cinp, coutp = _r128(cm), _r128(cin), _r128(cout)
+    p1, p3 = cmp // 128, coutp // 128
+
+    def stages(n, macs, nbytes):
+        return n * max(macs, 180 * nbytes)
+
+    block = (stages(p1 * cinp // 128, qp * 128 * 128, _SLOT + qp * 128)
+             + stages(p1 * 9 * cmp // 128, pp * 128 * 128, _SLOT)
+             + stages(p3 * cmp // 128, pp * 128 * 128, _SLOT))
+    tiles = tiles_per_axis(h0, D, r) * tiles_per_axis(w, D, s)
+    return -(-tiles // _SMS) * block, tiles * block
+
+
+@functools.lru_cache(maxsize=64)
+def chain_tile(h0: int, w: int, cin: int, cm: int, cout: int
+               ) -> Optional[Tuple[int, int, int]]:
+    """(R, S, stages): the output tile of csrc/int8_chain.cu and the
+    slots of its ring, or None if no tile fits the shared memory.  A tile
+    holds R x S outputs spaced by D, so the 3x3's taps fall on an
+    (R+2) x (S+2) grid of y1 computed once a tile.  Takes the tile with
+    the least modelled time (:func:`_chain_tile_cost`), then the most
+    outputs (8 x 16 ran 1.5-2.5% faster than 11 x 11 at the pruned
+    layer3 on an H100, where the model ties them), then the least work,
+    and as many ring slots (up to 4) as shared memory holds."""
+    best, best_key = None, None
+    for r in range(1, _MAX_OUT + 1):
+        for s in range(1, _MAX_OUT // r + 1):
+            if ((r + 2) * (s + 2) > _MAX_GRID
+                    or chain_smem_bytes(r, s, cm) > _SMEM_LIMIT):
+                continue
+            t, work = _chain_tile_cost(h0, w, cin, cm, cout, r, s)
+            key = (t, -r * s, work)
+            if best_key is None or key < best_key:
+                best, best_key = (r, s), key
+    if best is None:
+        return None
+    stages = max(n for n in (2, 3, 4)
+                 if chain_smem_bytes(*best, cm, n) <= _SMEM_LIMIT)
+    return best + (stages,)
+
+
+def chain_int8_launch(x8: torch.Tensor, weights: ChainWeights,
+                      scales: Scales) -> torch.Tensor:
     """One launch of K6 on a CUDA ``x8`` with the weights of
-    :func:`chain_int8_weights`."""
-    w1t, w2t, w3t = weights
+    :func:`chain_int8_weights`, on the tile of :func:`chain_tile`."""
     hp, w, cin = (int(s) for s in x8.shape)
-    cm, cout = int(w1t.shape[0]), int(w3t.shape[0])
     if x8.dtype != torch.int8 or not x8.is_contiguous():
         raise ValueError("chain_int8: x must be contiguous int8")
-    for t, shape in zip(weights, ((cm, cin), (9, cm, cm), (cout, cm))):
-        if (t.dtype != torch.int8 or t.device != x8.device
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError("chain_int8: the weights must be contiguous "
-                             "int8 (Cm, Cin), (9, Cm, Cm) and (Cout, Cm) on "
-                             "x's device, as chain_int8_weights makes them")
+    if not isinstance(weights, ChainWeights):
+        raise ValueError("chain_int8: the weights must be made by "
+                         "chain_int8_weights")
+    w1t, w2t, w3t, cm, cout = weights
+    cmp, coutp = _r128(cm), _r128(cout)
+    shapes = ((cmp, _r128(cin)), (9, cmp, cmp), (coutp, cmp))
+    if any(t.dtype != torch.int8 or t.device != x8.device
+           or tuple(t.shape) != shape or not t.is_contiguous()
+           for t, shape in zip((w1t, w2t, w3t), shapes)):
+        raise ValueError("chain_int8: the weights must be contiguous "
+                         "int8 (Cm, Cin), (9, Cm, Cm) and (Cout, Cm), padded "
+                         "to multiples of 128, on x's device, as "
+                         "chain_int8_weights makes them")
     if cin % 16 or cm % 16 or cout % 2:
         raise ValueError(f"chain_int8: the kernel needs Cin and Cm multiples"
                          f" of 16 and Cout even; got {cin}, {cm}, {cout}")
     if any(t.data_ptr() % 16 for t in (x8, w1t, w2t, w3t)):
         raise ValueError("chain_int8: x and the weights must start on a "
                          "16-byte boundary")
-    if chain_smem_bytes(cm) > _SMEM_LIMIT:
+    tile = chain_tile(hp - 2 * D, w, cin, cm, cout)
+    if tile is None:
         raise ValueError(f"chain_int8: Cm={cm} does not fit the kernel's "
                          f"shared memory")
     s1, s2, s3 = _f32_scales(scales)
@@ -259,10 +362,10 @@ def chain_int8_launch(x8: torch.Tensor, weights, scales: Scales
                       device=x8.device)
     fn = c_entry("int8_chain", "dcfp_chain_int8",
                  [_VP, _VP, _VP, _VP, _CF, _CF, _CF, _VP, _CI, _CI, _CI, _CI,
-                  _CI, _CI, _VP])
+                  _CI, _CI, _CI, _CI, _CI, _VP])
     run_c_entry(fn, x8.device, "chain_int8", x8.data_ptr(), w1t.data_ptr(),
                 w2t.data_ptr(), w3t.data_ptr(), s1, s2, s3, out.data_ptr(),
-                hp, w, cin, cm, cout, D)
+                hp, w, cin, cm, cout, D, *tile)
     return out
 
 

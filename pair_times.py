@@ -1,14 +1,19 @@
-"""Time the port's K3 and K5 in two checkouts of the repo, in turns, on one
-CUDA card: A, B, B, A.
+"""Time the port's K3, K4, K5 and K6 in two checkouts of the repo, in
+turns, on one CUDA card: A, B, B, A.
 
     python3 pair_times.py PARENT_DIR CHANGE_DIR [--out FILE]
 
 Each turn is a fresh process in that checkout, which builds its kernels
 and times them with its own ``chip_smoke.py`` helpers (``time_k5`` at
 1024^3 and 64x4096x1024 in int8 and bf16; ``time_k3`` at the pruned
-R101's layer3 and layer4 shapes), so both sides use the same inputs,
-timers and yardsticks.  Prints one JSON line per turn and, last, the
-card's name and power limit; exits non-zero without a card.
+R101's layer3 and layer4 shapes) and its own launch entries (K4 at the
+ASPP probe's stage B, 129 x 257 x 2048 -> 3 x 128 on seeded data; K6 at
+the int8 probe's stage-B shape and the pruned layer3's, on
+``chip_smoke.py``'s inputs; CUDA events over 30 launches after 5, on
+weights prepared once), so both sides use the same inputs, timers and
+yardsticks.  Prints one JSON line per turn and, last, the card's name and
+power limit; exits non-zero without a card.  About 40 s a turn on an
+H100.
 """
 
 import argparse
@@ -33,6 +38,18 @@ for name, (n, h, w, cin, cm, d) in cs.K3_DEPLOY.items():
                                     (0.5, 0.04, 0.08, 0.08, 0.1))
     x = x.contiguous(memory_format=torch.channels_last)
     out[f"k3 {name}"] = cs.time_k3(name, x, args, d)
+from dcfp_tpu_torch.ops import aspp, int8
+gen = torch.Generator(device="cuda").manual_seed(11)
+x = (torch.randn((129, 257, 2048), device="cuda", generator=gen).relu()
+     * 0.5).to(torch.bfloat16)
+wt = aspp.aspp_kernel_weights((torch.randn(
+    (27, 2048, 128), device="cuda", generator=gen) * 0.01).to(torch.bfloat16))
+out["k4 stage B"] = cs.cuda_ms(lambda: aspp.aspp_fused_launch(x, wt), 30, 5)
+for seed, (name, shape) in enumerate(cs.K6_SHAPES.items(), 1):
+    x8, w1, w2, w3 = cs._k6_inputs(*shape, seed)
+    cw = int8.chain_int8_weights(w1, w2, w3)
+    out[f"k6 {name}"] = cs.cuda_ms(
+        lambda: int8.chain_int8_launch(x8, cw, cs.K6_SCALES), 30, 5)
 print("PAIR " + json.dumps(out), flush=True)
 """
 

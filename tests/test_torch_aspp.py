@@ -128,7 +128,112 @@ def test_wrapper_rejects_bad_inputs():
         port.aspp_fused_launch(x, wts)
     with pytest.raises(ValueError, match="27, Cout, Cin"):
         port.aspp_fused_launch(x, port.aspp_kernel_weights(wts).float())
+    with pytest.raises(ValueError, match="27, Cout, Cin"):  # not padded
+        port.aspp_fused_launch(x, wts.transpose(1, 2).contiguous())
     with pytest.raises(ValueError, match="aspp_weights"):
         port.aspp_weights(torch.zeros(8, 16, 3, 3), torch.zeros(8, 16, 1, 1),
                           torch.zeros(8, 16, 3, 3))
     assert kernels.LAUNCHES == before
+
+
+# the shapes chip_smoke.py and the probe run K4 at: stage B (the served
+# pruned R101's layer4 output), stage N, and the edge shapes (K4_ODD,
+# K4_NARROW, K4_SPARSE); then this file's CPU cases
+SHAPES = [(129, 257, 2048, 128), (40, 61, 256, 128), (23, 37, 200, 72),
+          (20, 9, 72, 64), (40, 50, 136, 192), (20, 30, 256, 128),
+          (80, 84, 128, 16)]
+
+
+def _blocks(h, w, r, s):
+    """csrc/aspp.cu's pixel rectangles: block i starts at
+    ((i // ntx) r, (i % ntx) s)."""
+    ntx = -(-w // s)
+    return [((i // ntx) * r, (i % ntx) * s)
+            for i in range(-(-h // r) * ntx)]
+
+
+@pytest.mark.parametrize("h,w,cin,cout", SHAPES)
+def test_aspp_tile_fits_and_covers(h, w, cin, cout):
+    """The planned rectangle is whole m-tiles (128 or 256 pixels, each side
+    within a TMA box's 256), its ring fits a block's 227 KB, and the
+    blocks own every output pixel exactly once."""
+    r, s, stages = port.aspp_tile(h, w, cin, cout)
+    assert r * s in (128, 256) and r <= 256 and s <= 256
+    assert 2 <= stages <= 4
+    assert port.aspp_smem_bytes(r, s, stages) <= 232448
+    owned = np.zeros((h, w), np.int64)
+    for y0, x0 in _blocks(h, w, r, s):
+        for p in range(r * s):
+            y, x = y0 + p // s, x0 + p % s
+            if y < h and x < w:
+                owned[y, x] += 1
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("h,w,cin,cout", SHAPES)
+def test_live_taps_match_brute_force(h, w, cin, cout):
+    """A block's live taps are exactly those for which one of its outputs
+    inside the image reads a pixel inside the image; at the edge shapes
+    some (block, branch) keeps only its centre tap."""
+    r, s, _ = port.aspp_tile(h, w, cin, cout)
+    fewest = 9
+    for y0, x0 in _blocks(h, w, r, s):
+        ys = np.arange(y0, min(y0 + r, h))[:, None]
+        xs = np.arange(x0, min(x0 + s, w))[None, :]
+        for d in port.DILATIONS:
+            want = [tap for tap in range(9)
+                    if ((0 <= ys + (tap // 3 - 1) * d)
+                        & (ys + (tap // 3 - 1) * d < h)
+                        & (0 <= xs + (tap % 3 - 1) * d)
+                        & (xs + (tap % 3 - 1) * d < w)).any()]
+            got = port.live_taps(y0, x0, r, s, h, w, d)
+            assert got == want and 4 in got
+            fewest = min(fewest, len(got))
+    if (h, w) == (40, 50):
+        assert fewest == 1
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(40, 61, 256, 128),
+                                          (23, 37, 200, 72)])
+def test_dead_taps_add_nothing(h, w, cin, cout):
+    """At stage N's shape and the odd one: for every block, the plain
+    version with the weights of the block's dead taps zeroed (every
+    branch at once) equals the full plain version on the block's outputs,
+    bit for bit, in f32; so skipping them changes nothing."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((h, w, cin)).astype(np.float32))
+    wts = torch.from_numpy(
+        rng.standard_normal((27, cin, cout)).astype(np.float32))
+    full = port.aspp_fused_plain(x, wts)
+    r, s, _ = port.aspp_tile(h, w, cin, cout)
+    groups = {}
+    for y0, x0 in _blocks(h, w, r, s):
+        live = tuple(tuple(port.live_taps(y0, x0, r, s, h, w, d))
+                     for d in port.DILATIONS)
+        groups.setdefault(live, []).append((y0, x0))
+    assert len(groups) > 1
+    for live, blocks in groups.items():
+        zeroed = wts.clone()
+        for b, taps in enumerate(live):
+            for tap in set(range(9)) - set(taps):
+                zeroed[b * 9 + tap] = 0
+        got = port.aspp_fused_plain(x, zeroed)
+        for y0, x0 in blocks:
+            assert torch.equal(got[y0:y0 + r, x0:x0 + s],
+                               full[y0:y0 + r, x0:x0 + s])
+
+
+@pytest.mark.parametrize("cin,cout", [(2048, 128), (200, 72), (72, 64)])
+def test_kernel_weights_round_trip(cin, cout):
+    """K4's padded (27, Cout, Cinp) weights hold the (27, Cin, Cout) stack
+    transposed in their leading Cin columns and zeros past them (Cinp a
+    multiple of 64: whole TMA boxes)."""
+    rng = np.random.default_rng(cin)
+    wts = torch.from_numpy(rng.standard_normal((27, cin, cout)).astype(
+        np.float32)).to(torch.bfloat16)
+    wt = port.aspp_kernel_weights(wts)
+    cinp = -(-cin // 64) * 64
+    assert wt.shape == (27, cout, cinp) and wt.is_contiguous()
+    assert wt.dtype == torch.bfloat16
+    assert torch.equal(wt[:, :, :cin].transpose(1, 2), wts)
+    assert not wt[:, :, cin:].any()

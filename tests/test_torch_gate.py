@@ -58,7 +58,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dcfp_tpu)(?:\.|\s|$)",
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "pair_times.py", "k3_parts.py"]))
+    + ["chip_smoke.py", "pair_times.py", "k3_parts.py", "k46_parts.py"]))
 def test_source_has_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not _IMPORT.findall(src), f"{path} imports {_IMPORT.findall(src)}"

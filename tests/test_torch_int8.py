@@ -234,18 +234,90 @@ def test_wrappers_reject_bad_inputs():
                                     w3.t()), sc)
     with pytest.raises(ValueError, match="weights must be"):  # not made
         port.chain_int8_launch(x8, (w1.t(), w2, w3.t()), sc)
-    big = torch.zeros(32, 512, dtype=torch.int8)
-    with pytest.raises(ValueError, match="shared memory"):  # Cm 512
+    made = port.chain_int8_weights(w1, w2, w3)
+    with pytest.raises(ValueError, match="weights must be"):  # not padded
+        port.chain_int8_launch(x8, made._replace(w2=made.w2[:, :16, :16]),
+                               sc)
+    big = torch.zeros(32, 2048, dtype=torch.int8)
+    with pytest.raises(ValueError, match="shared memory"):  # Cm 2048
         port.chain_int8_launch(x8, port.chain_int8_weights(
-            big, torch.zeros(9, 512, 512, dtype=torch.int8), big.t()), sc)
+            big, torch.zeros(9, 2048, 2048, dtype=torch.int8), big.t()), sc)
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("cm,fits", [(128, True), (256, True), (512, False)])
+@pytest.mark.parametrize("cin,cm,cout", [
+    (1024, 256, 1024),  # the probe's stage B
+    (48, 48, 40),       # chip_smoke.py's K6_ODD
+    (64, 80, 42)])      # its K6_EDGE: Cm off the 128-byte row
+def test_chain_weights_round_trip(cin, cm, cout):
+    """K6's padded [output][input] weights hold the originals in their
+    leading rows and columns and zeros everywhere else (multiples of 128:
+    whole TMA boxes)."""
+    rng = np.random.default_rng(cin + cm + cout)
+    _, w1, w2, w3 = (_t(v) for v in _chain_inputs(rng, 1, 1, cin, cm, cout))
+    cw = port.chain_int8_weights(w1, w2, w3)
+    assert (cw.cm, cw.cout) == (cm, cout)
+    cinp, cmp, coutp = (-(-v // 128) * 128 for v in (cin, cm, cout))
+    assert cw.w1.shape == (cmp, cinp) and cw.w2.shape == (9, cmp, cmp)
+    assert cw.w3.shape == (coutp, cmp)
+    assert all(t.is_contiguous() for t in cw[:3])
+    assert torch.equal(cw.w1[:cm, :cin].t(), w1)
+    assert torch.equal(cw.w2[:, :cm, :cm].transpose(1, 2), w2)
+    assert torch.equal(cw.w3[:cout, :cm].t(), w3)
+    nonzero = sum(int((t != 0).sum()) for t in cw[:3])
+    assert nonzero == sum(int((t != 0).sum()) for t in (w1, w2, w3))
+
+
+def _chain_owned(size, d, t):
+    """Outputs along one axis of each working block of csrc/int8_chain.cu:
+    block ``res * n + k`` owns ``res + d * (k * t + i)`` for i < t and
+    returns at once if its first one lies past the axis."""
+    n = -(-(-(-size // d)) // t)
+    return [[res + d * (k * t + i) for i in range(t)
+             if res + d * (k * t + i) < size]
+            for res in range(d) for k in range(n) if res + d * k * t < size]
+
+
+@pytest.mark.parametrize("h0,w,cin,cm,cout", [
+    (128, 256, 1024, 256, 1024),  # the probe's stage B
+    (129, 257, 1024, 128, 1024),  # the pruned R101's layer3
+    (7, 45, 48, 48, 40),          # chip_smoke.py's K6_ODD
+    (9, 11, 64, 80, 42),          # its K6_EDGE: W below one tile
+    (8, 16, 32, 16, 32),          # this file's CPU cases
+    (7, 11, 48, 32, 16)])
+def test_chain_tile_fits_and_covers(h0, w, cin, cm, cout):
+    """The planned tile is within the kernel's limits (R*S <= 128 outputs
+    on a grid of <= 192 y1 pixels, shared memory within a block's 227 KB
+    at the planned ring depth), every output is owned by exactly one
+    block, and a tile's grid reaches every input row and column its
+    outputs' taps read."""
+    r, s, stages = port.chain_tile(h0, w, cin, cm, cout)
+    assert r * s <= 128 and (r + 2) * (s + 2) <= 192 and 2 <= stages <= 4
+    assert port.chain_smem_bytes(r, s, cm, stages) <= 232448
+    rows, cols = _chain_owned(h0, D, r), _chain_owned(w, D, s)
+    assert sorted(y for b in rows for y in b) == list(range(h0))
+    assert sorted(x for b in cols for x in b) == list(range(w))
+    for b in rows:  # grid rows b[0] + D * i, i < r + 2: taps at +0, D, 2D
+        assert {y + k * D for y in b for k in range(3)} <= {
+            b[0] + D * i for i in range(r + 2)}
+    for b in cols:  # grid columns b[0] + D * (i - 1), i < s + 2
+        assert {x + k * D for x in b for k in (-1, 0, 1)} <= {
+            b[0] + D * (i - 1) for i in range(s + 2)}
+
+
+@pytest.mark.parametrize("cm,fits", [(128, True), (256, True), (512, True),
+                                     (2048, False)])
 def test_chain_smem(cm, fits):
-    """K6's shared memory at the pruned layer3 (Cm 128) and the probe's
-    (Cm 256) shapes fits a block's 227 KB; Cm 512 does not."""
-    assert (port.chain_smem_bytes(cm) <= 232448) == fits
+    """K6's shared memory at the probe's stage-B shape: Cm 128 (the pruned
+    layer3's), 256 (the probe's) and 512 fit a block's 227 KB on the
+    planned tile; at Cm 2048 not even a 1 x 1 tile with a 2-slot ring
+    fits, and the planner says so."""
+    tile = port.chain_tile(128, 256, 1024, cm, 1024)
+    if fits:
+        assert port.chain_smem_bytes(tile[0], tile[1], cm, tile[2]) <= 232448
+    else:
+        assert tile is None
+        assert port.chain_smem_bytes(1, 1, cm, 2) > 232448
 
 
 @pytest.mark.parametrize("m,k,n,dtype,offset", [
