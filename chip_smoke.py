@@ -11,7 +11,9 @@ exits non-zero without them.  Phases, each of which raises on failure:
    the stem conv (K2), the fused bottleneck (K3), the fused ASPP
    branches (K4), the tiled matmul (K5) and the int8 chain (K6);
 3. each kernel against its plain PyTorch version on the card: K1 over
-   the deploy shape and the JAX package's kernel test cases; K2 over
+   the deploy shape, the JAX package's kernel test cases and shapes off
+   its tiles and channel chunks (``K1_ODD``), timed in a CUDA graph and
+   through its wrapper; K2 over
    tests/test_stem.py's shapes, batch 2 and the deploy shape, and against
    cuDNN's stem conv on the deploy image; K3 over tests/test_bottleneck.py's
    cases, and, as its probe (tools/exp_bottleneck.py) does, at the pruned
@@ -173,11 +175,13 @@ def near_tie_check(labels, z_nhwc, out_hw, ac, tag):
     Returns (mismatches, max_abs_err), where max_abs_err is the largest
     gap between the best resized value and the value of K1's label."""
     up = resize_bilinear(z_nhwc, out_hw, ac).float()
-    top2 = up.topk(2, dim=-1).values
+    top2 = up.topk(min(2, up.shape[-1]), dim=-1).values
     want = torch.argmax(up, dim=-1).to(torch.uint8)
     diff = labels != want
     n_diff = int(diff.sum())
     share = n_diff / labels.numel()
+    if n_diff and up.shape[-1] == 1:
+        raise AssertionError(f"{tag}: labels other than 0 with one class")
     picked = up.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     max_abs_err = float((top2[..., 0] - picked).max())
     if n_diff:
@@ -195,15 +199,31 @@ def near_tie_check(labels, z_nhwc, out_hw, ac, tag):
     return n_diff, max_abs_err
 
 
+# the JAX package's kernel test cases and the deploy shape
+K1_CASES = [((1, 19, 129, 257), MAIN_OUT, True),       # deploy shape
+            ((1, 19, 17, 33), (65, 129), True),         # test_pallas.py
+            ((2, 7, 16, 16), (64, 64), False),
+            ((1, 150, 9, 9), (33, 33), True),
+            ((1, 171, 65, 129), (513, 1025), False)]    # COCO-stuff
+# shapes off K1's tiles and chunks
+K1_ODD = [((2, 19, 33, 61), (257, 481), True),    # N = 2; out_w odd, off TW
+          ((1, 171, 17, 29), (131, 227), False),  # C = 171: six chunks
+          ((1, 5, 40, 257), (20, 100), False),    # down-sampling
+          ((1, 1, 9, 10), (37, 45), True),        # C = 1
+          ((2, 256, 6, 7), (23, 27), True)]       # C = 256, uint8's most
+
+
 def phase_k1():
+    """K1 on every case of ``K1_CASES`` and ``K1_ODD``, f32 and bf16: the
+    NHWC entry, ``_cm`` on NCHW and ``_cm`` on channels_last agree, and
+    the labels pass the near-tie rule; then the tie case."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [((1, 19, 129, 257), MAIN_OUT, True),       # deploy shape
-             ((1, 19, 17, 33), (65, 129), True),         # test_pallas.py
-             ((2, 7, 16, 16), (64, 64), False),
-             ((1, 150, 9, 9), (33, 33), True),
-             ((1, 171, 65, 129), (513, 1025), False)]    # COCO-stuff
     results = {}
-    for shape, out_hw, ac in cases:
+    for shape, out_hw, ac in K1_CASES + K1_ODD:
+        plan = kernels.resize_argmax_plan(*shape, *out_hw, ac)
+        log(f"[k1] plan {tuple(shape)}->{out_hw}: tile {plan.tr}x{plan.tw}, "
+            f"chunk {plan.c_chunk}, footprint <= {plan.span_r}x"
+            f"{plan.span_c}, grid {plan.grid}, smem {plan.smem} B")
         for dtype in (torch.float32, torch.bfloat16):
             z = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             z_nhwc = z.permute(0, 2, 3, 1).contiguous()
@@ -232,8 +252,11 @@ def time_k1():
     """K1 at the deploy shape (bf16) beside its plain version, the
     library call, and its bound.  The logits are channels_last, the
     layout the classifier conv hands K1 on the main path, and
-    L2-resident, as they are when that conv has just run.  K1 on the
-    contiguous (N, C, h, w) layout is timed too."""
+    L2-resident, as they are when that conv has just run.  The kernel is
+    timed in a CUDA graph (``ms``; it is shorter than the wrapper's
+    Python issue time) and through the wrapper (``wrapper_ms``, CUDA
+    events), on channels_last and on the contiguous (N, C, h, w)
+    layout."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     z = torch.randn(MAIN_SHAPE, device="cuda", generator=gen).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -241,8 +264,13 @@ def time_k1():
     z_nhwc = z.permute(0, 2, 3, 1)
     n, c, h, w = MAIN_SHAPE
     out_h, out_w = MAIN_OUT
-    ms = cuda_ms(lambda: kernels.resize_argmax_cm(z, MAIN_OUT, True), 200)
-    nchw_ms = cuda_ms(
+    plan = kernels.resize_argmax_plan(n, c, h, w, out_h, out_w, True)
+    ms = graph_ms(lambda: kernels.resize_argmax_cm(z, MAIN_OUT, True))
+    nchw_ms = graph_ms(
+        lambda: kernels.resize_argmax_cm(z_nchw, MAIN_OUT, True))
+    wrapper_ms = cuda_ms(
+        lambda: kernels.resize_argmax_cm(z, MAIN_OUT, True), 200)
+    wrapper_nchw_ms = cuda_ms(
         lambda: kernels.resize_argmax_cm(z_nchw, MAIN_OUT, True), 200)
     plain_ms = cuda_ms(
         lambda: kernels.resize_argmax_plain(z_nhwc, MAIN_OUT, True), 20)
@@ -260,15 +288,26 @@ def time_k1():
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"[k1] deploy shape bf16: kernel {ms:.4f} ms (channels_last; "
-        f"{nchw_ms:.4f} ms on contiguous NCHW), plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms ({library_nchw_ms:.4f} ms on NCHW), "
-        f"bound {bound_ms:.4f} ms "
-        f"({n_bytes} B, {n_ops} f32 ops)")
-    return {"ms": ms, "ms_nchw": nchw_ms, "plain_ms": plain_ms,
+    # the f32 rate counts an FMA as two operations; K1's contract rounds
+    # every product and sum on its own, one operation an instruction
+    non_fma_floor_ms = 2 * t_ops
+    log(f"[k1] deploy shape bf16: kernel {ms:.4f} ms in a CUDA graph "
+        f"(channels_last; {nchw_ms:.4f} ms on contiguous NCHW), wrapper "
+        f"{wrapper_ms:.4f} ms ({wrapper_nchw_ms:.4f} NCHW), plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+        f"({library_nchw_ms:.4f} ms on NCHW), bound {bound_ms:.4f} ms "
+        f"({n_bytes} B, {n_ops} f32 ops; {non_fma_floor_ms:.4f} ms "
+        f"without FMA); plan {plan}")
+    return {"ms": ms, "ms_nchw": nchw_ms, "wrapper_ms": wrapper_ms,
+            "wrapper_ms_nchw": wrapper_nchw_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_ms_nchw": library_nchw_ms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plan": {"tile": [plan.tr, plan.tw], "pixels_per_thread": plan.p,
+                     "c_chunk": plan.c_chunk,
+                     "footprint": [plan.span_r, plan.span_c],
+                     "grid": list(plan.grid), "threads": plan.threads,
+                     "smem": plan.smem}}
 
 
 @contextlib.contextmanager

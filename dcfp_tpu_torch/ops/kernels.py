@@ -7,7 +7,9 @@ deploy tail (port of ``dcfp_tpu/ops/pallas_kernels.py`` ``_kernel`` /
     out[n, y, x] = argmax_c  sum_ij  Wh[y, i] * Ww[x, j] * z[n, c, i, j]
 
 The upsampled logits are never written to device memory; only the uint8
-label map is.
+label map is.  The kernel's tiling (output tile, channel chunk, source
+footprint, shared memory) is planned on the host by
+:func:`resize_argmax_plan`, cached per shape.
 
 K2 ``stem_conv3x3_s2``: the 3x3 / stride-2 / pad-1 stem conv from
 stride-2 phase planes (port of ``dcfp_tpu/ops/pallas_kernels.py``
@@ -29,6 +31,7 @@ per launch, so a run can show which path it went through.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -88,7 +91,11 @@ def resize_argmax_cm(logits_cm: torch.Tensor, out_hw,
     """Channel-major variant: logits_cm (N, C, h, w) -> (N, H, W) uint8,
     with the numerics of :func:`resize_argmax`.  On CUDA the tensor must
     be contiguous, in the default or the channels_last memory format; the
-    kernel reads either in place."""
+    kernel reads either in place.  The kernel stages each output tile's
+    source footprint in shared memory, so a shape where even a 1 x 8
+    tile's footprint passes 227 KB (a strong down-sampling of a wide row,
+    such as 19 channels of 20000 columns to 8) raises ValueError from
+    :func:`resize_argmax_plan`."""
     _check(logits_cm, logits_cm.shape[1])
     if logits_cm.device.type == "cpu":
         return resize_argmax_plain(logits_cm.permute(0, 2, 3, 1), out_hw,
@@ -105,12 +112,13 @@ def resize_argmax_cm(logits_cm: torch.Tensor, out_hw,
 
 
 @functools.lru_cache(maxsize=64)
-def _taps(in_size: int, out_size: int, align_corners: bool,
-          device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _tap_table(in_size: int, out_size: int,
+               align_corners: bool) -> Tuple[np.ndarray, np.ndarray]:
     """Per-output-row tap table of ``_interp_matrix``: (out, 2) int32
     source indices and (out, 2) f32 weights, read from the matrix so the
     weights are bit-identical.  A row with one non-zero (identity or
-    clamped) repeats its index with weight 0."""
+    clamped) repeats its index with weight 0.  Both columns of indices
+    are non-decreasing down the rows."""
     mat = _interp_matrix(in_size, out_size, align_corners)
     idx = np.zeros((out_size, 2), np.int32)
     wts = np.zeros((out_size, 2), np.float32)
@@ -120,8 +128,109 @@ def _taps(in_size: int, out_size: int, align_corners: bool,
             raise AssertionError(f"interp row {r} has {nz.size} taps")
         idx[r] = (nz[0], nz[-1])
         wts[r, :nz.size] = mat[r, nz]
-    return (torch.from_numpy(idx).to(device),
-            torch.from_numpy(wts).to(device))
+    idx.setflags(write=False)
+    wts.setflags(write=False)
+    return idx, wts
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(in_size: int, out_size: int, align_corners: bool,
+          device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_tap_table` as tensors on ``device`` (cached; the kernel
+    reads them, callers must not write to them)."""
+    idx, wts = _tap_table(in_size, out_size, align_corners)
+    return (torch.from_numpy(idx.copy()).to(device),
+            torch.from_numpy(wts.copy()).to(device))
+
+
+K1_PIXELS = 8                # output pixels a thread owns along a row (P)
+K1_CHUNK = 32                # channels a block walks at a time (kChunk)
+# (TR, TW) output tiles in order of preference; TR * TW / P <= 256 threads
+K1_TILES = ((8, 256), (8, 128), (4, 128), (4, 64), (2, 64), (2, 32),
+            (1, 32), (1, 16), (1, 8))
+K1_SMEM_SOFT = 96 * 1024     # leaves room for two blocks an SM
+K1_SMEM_MAX = 227 * 1024     # what one block may have on sm_90
+K1_WAVE_BLOCKS = 2 * 132     # two blocks for each of the H100's SMs
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """The launch of K1 for one shape (see :func:`resize_argmax_plan`)."""
+    tr: int          # output rows of a tile
+    tw: int          # output columns of a tile
+    p: int           # pixels a thread owns along a row
+    c_chunk: int     # channels a block walks at a time, in ascending order
+    span_r: int      # source rows of the tallest tile footprint
+    span_c: int      # source columns of the widest tile footprint
+    grid: Tuple[int, int, int]  # (column tiles, row tiles, N)
+    threads: int
+    smem: int        # dynamic shared memory bytes of a block
+
+
+def _k1_smem(tr: int, tw: int, span_r: int, span_c: int, c: int,
+             c_chunk: int) -> int:
+    """K1's shared memory, the formula of ``csrc/resize_argmax.cu``
+    ``smem_bytes``: a row of labels (TW + 15 bytes, rounded up to 16) and
+    a row's taps (16 bytes) per tile row, and the staged footprint and the
+    H pass in f32, CS floats a column: the chunk's channels in float4
+    groups, an odd number of them (``col_stride``)."""
+    cs = 4 * (((min(c, c_chunk) + 3) // 4) | 1)
+    label_stride = (tw + 30) // 16 * 16
+    return tr * label_stride + tr * 16 + (span_r + tr) * span_c * cs * 4
+
+
+def _max_span(idx: np.ndarray, tile: int) -> int:
+    """The most source indices one tile of ``tile`` outputs reaches, over
+    the tiles of a tap table (taps are non-decreasing)."""
+    starts = np.arange(0, idx.shape[0], tile)
+    ends = np.minimum(starts + tile, idx.shape[0]) - 1
+    return int((idx[ends, 1] - idx[starts, 0]).max()) + 1
+
+
+@functools.lru_cache(maxsize=64)
+def resize_argmax_plan(n: int, c: int, h: int, w: int, out_h: int,
+                       out_w: int, align_corners: bool) -> K1Plan:
+    """K1's tiling for logits (n, c, h, w) resized to (out_h, out_w): the
+    tile, the channel chunk and the footprint spans the launch needs,
+    from the cached tap tables (no device work; cached, so a request
+    costs a lookup).
+
+    The channels go in chunks of ``K1_CHUNK``.  Among the tiles of
+    ``K1_TILES`` whose shared memory fits ``K1_SMEM_SOFT`` (else
+    ``K1_SMEM_MAX``), and of those with a full warp or more where there
+    are any, it takes the first whose grid fills two waves of the card,
+    else the one with the most blocks.  Raises ValueError if nothing fits
+    in 227 KB: a tile's whole source footprint is staged, so a strong
+    down-sampling of a wide row (19 channels of 20000 columns to 8, say)
+    has no plan."""
+    if min(n, c, h, w, out_h, out_w) < 1:
+        raise ValueError(f"resize_argmax_plan: empty shape "
+                         f"{(n, c, h, w)} -> {(out_h, out_w)}")
+    ytab = _tap_table(h, out_h, align_corners)[0]
+    xtab = _tap_table(w, out_w, align_corners)[0]
+    p = K1_PIXELS
+    tiles = [(tr, tw) for tr, tw in K1_TILES
+             if (tr <= out_h or tr == 1)
+             and (tw <= -(-out_w // p) * p or tw == p)]
+    for limit in (K1_SMEM_SOFT, K1_SMEM_MAX):
+        fits = []
+        for tr, tw in tiles:
+            sr, sc = _max_span(ytab, tr), _max_span(xtab, tw)
+            smem = _k1_smem(tr, tw, sr, sc, c, K1_CHUNK)
+            if smem <= limit:
+                grid = (-(-out_w // tw), -(-out_h // tr), n)
+                fits.append(K1Plan(tr, tw, p, K1_CHUNK, sr, sc, grid,
+                                   tr * tw // p, smem))
+        # blocks of a full warp or more, where any fits
+        fits = [f for f in fits if f.threads >= 32] or fits
+        if fits:
+            blocks = [f.grid[0] * f.grid[1] * f.grid[2] for f in fits]
+            return next((f for f, b in zip(fits, blocks)
+                         if b >= K1_WAVE_BLOCKS),
+                        fits[blocks.index(max(blocks))])
+    raise ValueError(f"resize_argmax: no tile of {(h, w)} -> "
+                     f"{(out_h, out_w)} fits in {K1_SMEM_MAX} bytes of "
+                     f"shared memory")
 
 
 def build_all():
@@ -160,6 +269,9 @@ def run_c_entry(fn, device: torch.device, name: str, *args) -> None:
 
 _VP, _CI, _CL, _CF = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
+# csrc/resize_argmax.cu dcfp_resize_argmax_cm
+K1_ARGTYPES = [_VP, _CI, _CI, _CI, _CL, _CL, _CL, _CL, _CI, _CI, _VP, _VP,
+               _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CL, _VP]
 
 
 def _launch(z: torch.Tensor, out_hw: Tuple[int, int],
@@ -169,15 +281,15 @@ def _launch(z: torch.Tensor, out_hw: Tuple[int, int],
     out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=z.device)
     if out.numel() == 0:
         return out
+    plan = resize_argmax_plan(n, c, h, w, out_h, out_w, align_corners)
     ytap, ywt = _taps(h, out_h, align_corners, z.device)
     xtap, xwt = _taps(w, out_w, align_corners, z.device)
-    fn = c_entry("resize_argmax", "dcfp_resize_argmax_cm",
-                 [_VP, _CI, _CI, _CI, _CL, _CL, _CL, _CL, _CI, _CI, _VP, _VP,
-                  _VP, _VP, _VP, _VP])
+    fn = c_entry("resize_argmax", "dcfp_resize_argmax_cm", K1_ARGTYPES)
     run_c_entry(fn, z.device, "resize_argmax", z.data_ptr(),
                 int(z.dtype == torch.bfloat16), n, c, *z.stride(), out_h,
                 out_w, ytap.data_ptr(), ywt.data_ptr(), xtap.data_ptr(),
-                xwt.data_ptr(), out.data_ptr())
+                xwt.data_ptr(), out.data_ptr(), plan.tr, plan.tw, plan.p,
+                plan.c_chunk, plan.span_r, plan.span_c, plan.smem)
     return out
 
 

@@ -1,47 +1,87 @@
-"""Where K6's and K4's time goes: their kernels with parts switched off,
-on other tiles than the planners', or against other copies of their
-sources, on one CUDA card.
+"""Where K1's, K6's and K4's time goes: their kernels with parts switched
+off, with design choices undone, on other tiles than the planners', or
+against other copies of their sources, on one CUDA card.
 
-    python3 k46_parts.py                  # parts and tiles
-    python3 k46_parts.py --against DIR    # DIR's sources (A) vs the tree's (B)
+    python3 k46_parts.py                  # parts, choices and tiles
+    python3 k46_parts.py --sass           # also the bases' SASS counts
+    python3 k46_parts.py --against DIR    # DIR's sources (A) vs the
+                                          # tree's (B), in turns
 
-Builds variants of ``dcfp_tpu_torch/csrc/int8_chain.cu`` (K6) and
-``dcfp_tpu_torch/csrc/aspp.cu`` (K4) into ``.chip_tree/k46_parts/``
-(git-ignored), each with one part removed by a source edit, and times
-every variant with CUDA events (30 launches after 5, through the C
-entries): K6 at the int8 probe's stage-B shape and the pruned R101's
-layer3 (``chip_smoke.py``'s inputs), K4 at the ASPP probe's stage B
-(129 x 257 x 2048 -> 3 x 128, seeded like the served layer4 output).  The
-base kernels are also timed on tiles other than the planners'.  A
-variant's output is wrong by design; only its time means something: the
-time a part costs is at most base minus the variant without it.
+Builds variants of ``dcfp_tpu_torch/csrc/resize_argmax.cu`` (K1),
+``int8_chain.cu`` (K6) and ``aspp.cu`` (K4) into
+``.chip_tree/k46_parts/`` (git-ignored), each with one source edit,
+and times each through its C entry: K1 at the deploy shape (1 x 19 x
+129 x 257 bf16 -> 1025 x 2049, align_corners, channels_last,
+``chip_smoke.time_k1``'s input) in a CUDA graph, K6 at the int8 probe's
+stage-B shape and the pruned R101's layer3 (``chip_smoke.py``'s inputs)
+and K4 at the ASPP probe's stage B (129 x 257 x 2048 -> 3 x 128, seeded
+like the served layer4 output) with CUDA events, 30 launches after 5.
+The bases are also timed on tiles other than the planners'.
 
-With ``--against DIR``, DIR holds other copies of ``int8_chain.cu``,
-``aspp.cu`` and their headers (an older version of the kernels, with the
-same C entries); each is timed against the tree's in turns, A, B, B, A,
-at the same shapes and tiles.
+A variant that removes a part is wrong by design, and only its time
+means something: a part costs at most base minus the variant without
+it.  A variant that undoes a design choice (``CHOICES``), and K1's base
+on another tile, must give the base's labels bit for bit, and the
+script fails if they do not.  ``--sass`` prints the opcode counts of
+every kernel of each base library (``cuobjdump``) and writes its SASS
+beside the builds.  ``--against DIR`` times DIR's copy of each source
+(an older version with the same C entry; the headers are DIR's too)
+against the tree's in turns, A, B, B, A; a source whose C entry differs
+in DIR is skipped, with a line that says so.
 
-Prints one line per shape and variant (or turn), then the card's name
-and power limit; exits non-zero without a card or when a part's hook is
-no longer in the source.  About 40 s on an H100, builds included.
+Prints the build's registers and spills, one line per case and variant
+(or turn), then the card's name and power limit; exits non-zero without
+a card, when a variant's hook is no longer in the source, or when a
+choice's or a tile's labels differ.  About a minute on an H100, builds
+included.
 """
 
 import argparse
+import collections
 import ctypes
+import dataclasses
+import re
+import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable, Optional
 
 import torch
 
 import chip_smoke as cs
-from dcfp_tpu_torch.ops import aspp, int8
+from dcfp_tpu_torch.ops import aspp, int8, kernels
 from dcfp_tpu_torch.ops import cuda_build as cb
 from dcfp_tpu_torch.ops.kernels import _CF, _CI, _VP
 
 OUT = Path(__file__).resolve().parent / ".chip_tree" / "k46_parts"
 
+K1_W_PASS = ("// Step 3: the W pass of this chunk, four channels a load\n"
+             "#pragma unroll\n    for (int cc = 0; cc < kChunk; cc += 4) {")
+
 # source: (C entry, argtypes, {variant: [(text, replacement)]})
 KERNELS = {
+    "resize_argmax": ("dcfp_resize_argmax_cm", kernels.K1_ARGTYPES, {
+        "base": [],
+        # bf16 pixels one at a time: rounded, widened and compared in f32
+        "no_pairs": [(
+            "constexpr bool kBf16Pairs = std::is_same<T, __nv_bfloat16>::"
+            "value;", "constexpr bool kBf16Pairs = false;")],
+        # a thread's pixels adjacent, not tpr apart
+        "adjacent": [("return q + k * tpr;", "return q * kPix + k;")],
+        # registers uncapped: fewer blocks an SM
+        "min_blocks_1": [("constexpr int kMinBlocks = 4;",
+                          "constexpr int kMinBlocks = 1;")],
+        # the W pass over the first 4 channels only (of 19)
+        "w_pass_4ch": [(K1_W_PASS, K1_W_PASS.replace("cc < kChunk",
+                                                     "cc < 4"))],
+        # no footprint staging: the H pass reads what shared memory holds
+        "no_stage": [("stage<T>(zs, zt, min(kChunk, C),",
+                      "if (C < 0) stage<T>(zs, zt, min(kChunk, C),")],
+        # no H pass: the W pass reads what shared memory holds
+        "no_h_pass": [("h_pass(as, zs, rtap, rwt, min(kChunk, C),",
+                       "if (C < 0) h_pass(as, zs, rtap, rwt, "
+                       "min(kChunk, C),")],
+    }),
     "int8_chain": ("dcfp_chain_int8",
                    [_VP, _VP, _VP, _VP, _CF, _CF, _CF, _VP] + [_CI] * 9
                    + [_VP], {
@@ -95,11 +135,27 @@ KERNELS = {
         "x_in_l2": [("&mx, full + r.slot, c0,", "&mx, full + r.slot, 0,")],
     }),
 }
+# variants that must give the base's output bit for bit
+CHOICES = {("resize_argmax", v) for v in ("no_pairs", "adjacent",
+                                          "min_blocks_1")}
 
-# other tiles (R, S, stages) to time the base kernels on
+# other tiles to time the bases on: K1 (TR, TW), K6 and K4 (R, S, stages)
+K1_TILES = [(4, 256), (8, 128), (4, 128), (16, 128), (2, 256)]
 K6_TILES = {"probe": [(8, 16, 2), (6, 21, 4), (11, 11, 4), (5, 25, 4)],
             "layer3": [(11, 11, 4), (10, 12, 4), (6, 21, 4)]}
 K4_TILES = [(16, 16, 4), (4, 64, 4), (8, 16, 4), (8, 32, 3), (8, 32, 2)]
+
+
+@dataclasses.dataclass
+class Case:
+    tag: str
+    source: str
+    head: tuple          # C entry arguments before the tile
+    tile: tuple          # the planner's tile arguments
+    others: list         # other tile arguments
+    keep: tuple          # tensors the arguments point into
+    out: Optional[torch.Tensor] = None  # output checked against the base's
+    graph: bool = False  # timed in a CUDA graph, else with CUDA events
 
 
 def build(jobs):
@@ -118,8 +174,12 @@ def build(jobs):
     for (source, name), (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"k46_parts: nvcc failed for {source} {name}:"
-                             f"\n{log}")
+            raise SystemExit(f"k46_parts: nvcc failed for {source} {name}"
+                             f":\n{log}")
+        regs = sorted(set(re.findall(r"Used (\d+) registers", log)))
+        spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
+        print(f"[k46_parts] built {source} {name}: registers {regs}, "
+              f"spill stores {spills} bytes", flush=True)
         entry, argtypes, _ = KERNELS[source]
         fn = getattr(ctypes.CDLL(str(so.resolve())), entry)
         fn.argtypes = argtypes
@@ -127,89 +187,186 @@ def build(jobs):
     return fns
 
 
-def variants():
+def variants(sources):
     """The build jobs of every variant: the tree's source with its edits."""
     jobs = {}
-    for source, (_, _, parts) in KERNELS.items():
+    for source in sources:
         src = (cb.CSRC_DIR / f"{source}.cu").read_text()
-        for name, edits in parts.items():
+        for name, edits in KERNELS[source][2].items():
             text = src
             for old, new in edits:
                 if old not in text:
-                    raise SystemExit(f"k46_parts: the hook of {source} {name}"
-                                     f" is not in {source}.cu: {old[:60]!r}")
+                    raise SystemExit(f"k46_parts: the hook of {source} "
+                                     f"{name} is not in {source}.cu: "
+                                     f"{old[:60]!r}")
                 text = text.replace(old, new)
             jobs[source, name] = (text, cb.CSRC_DIR)
     return jobs
 
 
-def cases():
-    """[(tag, source, C entry arguments before the tile, the planner's
-    tile, other tiles, tensors to keep alive)]: K6 at both shapes, K4 at
-    stage B."""
+def entry_decl(text, entry):
+    """The C entry's declaration in a source, whitespace folded."""
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
+                  re.DOTALL)
+    return " ".join(m.group(1).split()) if m else None
+
+
+def k1_case():
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    z = torch.randn(cs.MAIN_SHAPE, device="cuda", generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    n, c, h, w = cs.MAIN_SHAPE
+    (oh, ow), ac = cs.MAIN_OUT, True
+    ytap, ywt = kernels._taps(h, oh, ac, z.device)
+    xtap, xwt = kernels._taps(w, ow, ac, z.device)
+    yi = kernels._tap_table(h, oh, ac)[0]
+    xi = kernels._tap_table(w, ow, ac)[0]
+    out = torch.empty((n, oh, ow), dtype=torch.uint8, device="cuda")
+
+    def tile(tr, tw):
+        sr, sc = kernels._max_span(yi, tr), kernels._max_span(xi, tw)
+        return (tr, tw, kernels.K1_PIXELS, kernels.K1_CHUNK, sr, sc,
+                kernels._k1_smem(tr, tw, sr, sc, c, kernels.K1_CHUNK))
+
+    plan = kernels.resize_argmax_plan(n, c, h, w, oh, ow, ac)
+    head = (z.data_ptr(), 1, n, c, *z.stride(), oh, ow, ytap.data_ptr(),
+            ywt.data_ptr(), xtap.data_ptr(), xwt.data_ptr(), out.data_ptr())
+    return Case("k1 deploy", "resize_argmax", head, tile(plan.tr, plan.tw),
+                [tile(*t) for t in K1_TILES], (z, ytap, ywt, xtap, xwt),
+                out, graph=True)
+
+
+def cases(sources):
+    """The cases of ``sources``: K1 at the deploy shape, K6 at both
+    shapes, K4 at stage B."""
     out = []
-    for seed, (shape, (h0, w, cin, cm, cout)) in enumerate(
-            cs.K6_SHAPES.items(), 1):
-        x8, w1, w2, w3 = cs._k6_inputs(h0, w, cin, cm, cout, seed)
-        cw = int8.chain_int8_weights(w1, w2, w3)
-        o = torch.empty((h0, w, cout), dtype=torch.bfloat16, device="cuda")
-        head = (x8.data_ptr(), cw.w1.data_ptr(), cw.w2.data_ptr(),
-                cw.w3.data_ptr(), *cs.K6_CHECK_SCALES, o.data_ptr(),
-                h0 + 2 * int8.D, w, cin, cm, cout, int8.D)
-        out.append((f"k6 {shape}", "int8_chain", head,
-                    int8.chain_tile(h0, w, cin, cm, cout), K6_TILES[shape],
-                    (x8, cw, o)))
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    h, w, cin, cout = 129, 257, 2048, 128
-    x = (torch.randn((h, w, cin), device="cuda", generator=gen).relu()
-         * 0.5).to(torch.bfloat16)
-    wt = aspp.aspp_kernel_weights((torch.randn(
-        (27, cin, cout), device="cuda", generator=gen) * 0.01).to(
-            torch.bfloat16))
-    o = torch.empty((h, w, 3 * cout), dtype=torch.bfloat16, device="cuda")
-    head = (x.data_ptr(), wt.data_ptr(), o.data_ptr(), h, w, cin, cout,
-            *aspp.DILATIONS)
-    out.append(("k4 stage B", "aspp", head, aspp.aspp_tile(h, w, cin, cout),
-                K4_TILES, (x, wt, o)))
+    if "resize_argmax" in sources:
+        out.append(k1_case())
+    if "int8_chain" in sources:
+        for seed, (shape, (h0, w, cin, cm, cout)) in enumerate(
+                cs.K6_SHAPES.items(), 1):
+            x8, w1, w2, w3 = cs._k6_inputs(h0, w, cin, cm, cout, seed)
+            cw = int8.chain_int8_weights(w1, w2, w3)
+            o = torch.empty((h0, w, cout), dtype=torch.bfloat16,
+                            device="cuda")
+            head = (x8.data_ptr(), cw.w1.data_ptr(), cw.w2.data_ptr(),
+                    cw.w3.data_ptr(), *cs.K6_CHECK_SCALES, o.data_ptr(),
+                    h0 + 2 * int8.D, w, cin, cm, cout, int8.D)
+            out.append(Case(f"k6 {shape}", "int8_chain", head,
+                            int8.chain_tile(h0, w, cin, cm, cout),
+                            K6_TILES[shape], (x8, cw, o)))
+    if "aspp" in sources:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        h, w, cin, cout = 129, 257, 2048, 128
+        x = (torch.randn((h, w, cin), device="cuda", generator=gen).relu()
+             * 0.5).to(torch.bfloat16)
+        wt = aspp.aspp_kernel_weights((torch.randn(
+            (27, cin, cout), device="cuda", generator=gen) * 0.01).to(
+                torch.bfloat16))
+        o = torch.empty((h, w, 3 * cout), dtype=torch.bfloat16,
+                        device="cuda")
+        head = (x.data_ptr(), wt.data_ptr(), o.data_ptr(), h, w, cin, cout,
+                *aspp.DILATIONS)
+        out.append(Case("k4 stage B", "aspp", head,
+                        aspp.aspp_tile(h, w, cin, cout), K4_TILES,
+                        (x, wt, o)))
     return out
 
 
-def time_ms(fn, *args):
+def time_ms(case: Case, fn: Callable, tile) -> float:
     def run():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        err = fn(*case.head, *tile, torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"CUDA error {err}")
+            raise RuntimeError(f"{case.tag}: CUDA error {err}")
+    if case.graph:
+        return cs.graph_ms(run)
     return cs.cuda_ms(run, 30, 5)
+
+
+def sass_counts(source):
+    """{kernel: opcode Counter} of ``source``'s base library; its SASS is
+    written beside it."""
+    tool = shutil.which("cuobjdump") or str(Path(cb._nvcc()).parent
+                                            / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(OUT / f"lib{source}_base.so")],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    (OUT / f"{source}_base.sass").write_text(sass)
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func)
+        counts[func.split("\n")[0].strip()] = collections.Counter(
+            op.split(".")[0] for op in ops)
+    return counts
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sass", action="store_true",
+                    help="print the opcode counts of each base kernel")
     ap.add_argument("--against", default=None,
-                    help="a directory with other int8_chain.cu, aspp.cu and "
-                         "headers, timed in turns against the tree's")
+                    help="a directory with other copies of the sources and "
+                         "their headers, timed in turns against the tree's")
     opts = ap.parse_args()
     cs.phase_device()
+    sources = list(KERNELS)
     if opts.against:
         other = Path(opts.against).resolve()
+        ab = []
+        for s in sources:
+            entry = KERNELS[s][0]
+            theirs = other / f"{s}.cu"
+            if not theirs.exists() or entry_decl(
+                    theirs.read_text(), entry) != entry_decl(
+                    (cb.CSRC_DIR / f"{s}.cu").read_text(), entry):
+                print(f"[k46_parts] {s}: {entry} differs in {other}; "
+                      f"not timed", flush=True)
+            else:
+                ab.append(s)
         fns = build({(s, v): ((d / f"{s}.cu").read_text(), d)
-                     for s in KERNELS
+                     for s in ab
                      for v, d in (("A", other), ("B", cb.CSRC_DIR))})
-        for tag, source, head, tile, _, _ in cases():
-            a, b = fns[source, "A"], fns[source, "B"]
-            t = [time_ms(f, *head, *tile) for f in (a, b, b, a)]
-            print(f"[k46_parts] {tag} tile {list(tile)}: A {t[0]:.4f} B "
-                  f"{t[1]:.4f} B {t[2]:.4f} A {t[3]:.4f} ms", flush=True)
+        for case in cases(ab):
+            a, b = fns[case.source, "A"], fns[case.source, "B"]
+            t = [time_ms(case, f, case.tile) for f in (a, b, b, a)]
+            print(f"[k46_parts] {case.tag} tile {list(case.tile)}: A "
+                  f"{t[0]:.4f} B {t[1]:.4f} B {t[2]:.4f} A {t[3]:.4f} ms",
+                  flush=True)
     else:
-        fns = build(variants())
-        for tag, source, head, tile, others, _ in cases():
+        fns = build(variants(sources))
+        if opts.sass:
+            for s in sources:
+                for func, counts in sass_counts(s).items():
+                    print(f"[k46_parts] {s} base SASS {func[:80]}: "
+                          f"{sum(counts.values())} instructions; "
+                          f"{dict(counts.most_common(24))}", flush=True)
+        for case in cases(sources):
+            base = fns[case.source, "base"]
+            want = None
+            if case.out is not None:
+                time_ms(case, base, case.tile)
+                want = case.out.clone()
             for (src, name), fn in fns.items():
-                if src == source:
-                    print(f"[k46_parts] {tag} tile {list(tile)} {name}: "
-                          f"{time_ms(fn, *head, *tile):.4f} ms", flush=True)
-            for other in others:
-                print(f"[k46_parts] {tag} tile {list(other)} base: "
-                      f"{time_ms(fns[source, 'base'], *head, *other):.4f} ms",
-                      flush=True)
+                if src != case.source:
+                    continue
+                ms = time_ms(case, fn, case.tile)
+                same = ""
+                if want is not None:
+                    equal = bool(torch.equal(case.out, want))
+                    if (src, name) in CHOICES and not equal:
+                        raise SystemExit(f"k46_parts: {case.tag} {name} "
+                                         f"changed the output")
+                    same = f"; output equal to base {equal}"
+                print(f"[k46_parts] {case.tag} tile {list(case.tile)} "
+                      f"{name}: {ms:.4f} ms{same}", flush=True)
+            for other in case.others:
+                ms = time_ms(case, base, other)
+                if want is not None and not torch.equal(case.out, want):
+                    raise SystemExit(f"k46_parts: {case.tag} tile "
+                                     f"{list(other)} changed the output")
+                print(f"[k46_parts] {case.tag} tile {list(other)} base: "
+                      f"{ms:.4f} ms", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -1,4 +1,4 @@
-"""Time the port's K3, K4, K5 and K6 in two checkouts of the repo, in
+"""Time the port's K1, K3, K4, K5 and K6 in two checkouts of the repo, in
 turns, on one CUDA card: A, B, B, A.
 
     python3 pair_times.py PARENT_DIR CHANGE_DIR [--out FILE]
@@ -6,14 +6,19 @@ turns, on one CUDA card: A, B, B, A.
 Each turn is a fresh process in that checkout, which builds its kernels
 and times them with its own ``chip_smoke.py`` helpers (``time_k5`` at
 1024^3 and 64x4096x1024 in int8 and bf16; ``time_k3`` at the pruned
-R101's layer3 and layer4 shapes) and its own launch entries (K4 at the
-ASPP probe's stage B, 129 x 257 x 2048 -> 3 x 128 on seeded data; K6 at
-the int8 probe's stage-B shape and the pruned layer3's, on
-``chip_smoke.py``'s inputs; CUDA events over 30 launches after 5, on
-weights prepared once), so both sides use the same inputs, timers and
-yardsticks.  Prints one JSON line per turn and, last, the card's name and
-power limit; exits non-zero without a card.  About 40 s a turn on an
-H100.
+R101's layer3 and layer4 shapes) and its own launch entries (K1 at the
+deploy shape, 1 x 19 x 129 x 257 bf16 -> 1025 x 2049, channels_last and
+NCHW, in a CUDA graph; K4 at the ASPP probe's stage B, 129 x 257 x 2048
+-> 3 x 128 on seeded data; K6 at the int8 probe's stage-B shape and the
+pruned layer3's, on ``chip_smoke.py``'s inputs; CUDA events over 30
+launches after 5, on weights prepared once), so both sides use the same
+inputs, timers and yardsticks.  Each turn also prints the sha256 of K1's
+labels on every case of this checkout's ``chip_smoke.K1_CASES`` and
+``K1_ODD`` (f32 and bf16, NCHW and channels_last), from logits made on
+the card from a fixed seed, and the last lines say whether A's and B's
+labels are bit-equal.  Prints one JSON line per turn and, last, the
+card's name and power limit; exits non-zero without a card.  About 45 s
+a turn on an H100.
 """
 
 import argparse
@@ -22,7 +27,7 @@ import subprocess
 import sys
 
 TURN = r"""
-import json, torch
+import hashlib, json, sys, torch
 import chip_smoke as cs
 cs.phase_device()
 cs.phase_build()
@@ -50,7 +55,28 @@ for seed, (name, shape) in enumerate(cs.K6_SHAPES.items(), 1):
     cw = int8.chain_int8_weights(w1, w2, w3)
     out[f"k6 {name}"] = cs.cuda_ms(
         lambda: int8.chain_int8_launch(x8, cw, cs.K6_SCALES), 30, 5)
+from dcfp_tpu_torch.ops import kernels
+gen = torch.Generator(device="cuda").manual_seed(1)
+z = torch.randn((1, 19, 129, 257), device="cuda", generator=gen).to(
+    torch.bfloat16).contiguous(memory_format=torch.channels_last)
+z_nchw = z.contiguous()
+out["k1 deploy"] = cs.graph_ms(
+    lambda: kernels.resize_argmax_cm(z, (1025, 2049), True))
+out["k1 deploy nchw"] = cs.graph_ms(
+    lambda: kernels.resize_argmax_cm(z_nchw, (1025, 2049), True))
+gen = torch.Generator(device="cuda").manual_seed(7)
+digests = {}
+for shape, out_hw, ac in json.loads(sys.argv[1]):
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        h = hashlib.sha256()
+        for zz in (z, z.contiguous(memory_format=torch.channels_last)):
+            h.update(kernels.resize_argmax_cm(zz, tuple(out_hw), ac)
+                     .cpu().numpy().tobytes())
+        digests[f"{tuple(shape)}->{tuple(out_hw)} ac={ac} "
+                f"{str(dtype)[6:]}"] = h.hexdigest()
 print("PAIR " + json.dumps(out), flush=True)
+print("K1LABELS " + json.dumps(digests), flush=True)
 """
 
 
@@ -66,9 +92,12 @@ def main():
                          text=True, timeout=60)
     if smi.returncode != 0:
         raise SystemExit("pair_times: no CUDA card (nvidia-smi failed)")
+    from chip_smoke import K1_CASES, K1_ODD
+    cases = json.dumps(K1_CASES + K1_ODD)
     log = open(opts.out, "a") if opts.out else None
+    labels = []
     for turn, tree in enumerate((opts.a, opts.b, opts.b, opts.a)):
-        proc = subprocess.run([sys.executable, "-c", TURN], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", TURN, cases], cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if log:
             log.write(f"==== turn {turn} {tree}\n{proc.stdout}{proc.stderr}")
@@ -79,6 +108,16 @@ def main():
                     if x.startswith("PAIR "))
         print(json.dumps({"turn": turn, "tree": tree,
                           "times": json.loads(line[5:])}), flush=True)
+        labels.append(json.loads(next(
+            x for x in proc.stdout.splitlines()
+            if x.startswith("K1LABELS "))[9:]))
+    for turn, digests in enumerate(labels):
+        print(json.dumps({"turn": turn, "k1_label_sha256": digests}),
+              flush=True)
+    differ = sorted(k for k in labels[0] if len({d.get(k) for d in labels}) > 1)
+    print(json.dumps({"k1_labels_bit_equal_a_b": not differ,
+                      "cases": len(labels[0]), "differing": differ}),
+          flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
