@@ -14,8 +14,11 @@ exits non-zero without them.  Phases, each of which raises on failure:
    the deploy shape, the JAX package's kernel test cases and shapes off
    its tiles and channel chunks (``K1_ODD``), timed in a CUDA graph and
    through its wrapper; K2 over
-   tests/test_stem.py's shapes, batch 2 and the deploy shape, and against
-   cuDNN's stem conv on the deploy image; K3 over tests/test_bottleneck.py's
+   tests/test_stem.py's shapes, batch 2 and the deploy shape, against
+   cuDNN's stem conv on the deploy image, and on shapes off its runs,
+   chunks and routes (``K2_ODD``: odd Wp, cout 42, 128 and 2048, cin 1
+   and 2, batch 2 at the deploy width, phases 2 bytes off 4), timed in a
+   CUDA graph and with CUDA events; K3 over tests/test_bottleneck.py's
    cases, and, as its probe (tools/exp_bottleneck.py) does, at the pruned
    DeepLabV3-R101's layer3 and layer4 shapes beside the cuDNN chain;
    each kernel timed beside its bound, plain and library times;
@@ -46,6 +49,7 @@ exits non-zero without them.  Phases, each of which raises on failure:
 """
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -372,6 +376,16 @@ def f32_rel_check(got, ref, tag, rel=1e-5):
 # shape (the pruned R101's stem conv, backbone.conv1.0: 3 -> 64)
 K2_CASES = [(1, 65, 129, 3, 64), (1, 64, 64, 3, 16), (1, 33, 47, 4, 8),
             (2, 65, 129, 3, 64), (1,) + MAIN_OUT + (3, 64)]
+# bf16 only, (N, H, W, cin, cout, element offset of the phases): off the
+# runs, chunks and routes of K2's plan (``kernels.stem_conv_plan``)
+K2_ODD = [(1, 130, 1024, 3, 64, 0),      # Wp = 513, odd: 2-byte loads
+          (1, 65, 129, 3, 42, 0),        # cout 42: no 16-byte runs
+          (1, 65, 129, 3, 128, 0),       # cout 128: two channel chunks
+          (1, 65, 129, 1, 64, 0),        # cin 1: one k-step
+          (1, 65, 129, 2, 24, 0),        # cin 2
+          (1, 33, 47, 4, 2048, 0),       # cout 2048: channel groups
+          (2,) + MAIN_OUT + (3, 64, 0),  # N = 2 at the deploy width
+          (1, 65, 129, 3, 64, 1)]        # phases 2 bytes off 4 bytes
 
 
 def _stem_inputs(n, h, w, cin, cout, gen):
@@ -382,34 +396,61 @@ def _stem_inputs(n, h, w, cin, cout, gen):
     return img, ph, k, b
 
 
+def offset_copy(t, off):
+    """A contiguous copy of ``t`` that starts ``off`` elements into a fresh
+    buffer, so its data_ptr() sits off the allocator's 512-byte grain."""
+    if not off:
+        return t
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    return buf[off:].view(t.shape).copy_(t)
+
+
+def _k2_plan(ph, cout, out_hw):
+    n, _, hp, wp = ph.shape
+    return kernels.stem_conv_plan(n, ph.shape[1] // 4, cout, hp, wp,
+                                  *out_hw, kernels._ptr_align(ph.data_ptr()))
+
+
+def _k2_case(tag, ph, k, b, out_hw, relu):
+    """One K2 launch on ``ph`` against the plain version (f32 within
+    1e-5 x max|ref|, bf16 within 1 bf16 ulp); returns max|err|."""
+    n, cout = ph.shape[0], k.shape[0]
+    got = kernels.stem_conv3x3_s2(ph, k, b, out_hw, relu=relu)
+    torch.cuda.synchronize()
+    if (tuple(got.shape) != (n, cout) + tuple(out_hw)
+            or got.dtype != ph.dtype or not got.is_contiguous(
+                memory_format=torch.channels_last)):
+        raise AssertionError(f"{tag}: bad output {got.shape} {got.dtype} "
+                             f"{got.stride()}")
+    ref = kernels.stem_conv3x3_s2_plain(
+        ph.float(), k.to(ph.dtype).float(), b, out_hw, relu=relu)
+    return (f32_rel_check(got, ref, tag) if ph.dtype == torch.float32
+            else bf16_ulp_check(got, ref, tag))
+
+
 def phase_k2():
     """K2 against its plain version: f32 (TF32 off) within 1e-5 x max|ref|,
     bf16 within 1 bf16 ulp of the plain version's f32 result, ReLU off and
-    on; on the deploy image also against cuDNN's stem conv."""
+    on, on ``K2_CASES`` (f32 and bf16) and ``K2_ODD`` (bf16); on the
+    deploy image also against cuDNN's stem conv."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
-    for n, h, w, cin, cout in K2_CASES:
+    cases = ([(c + (0,), (torch.float32, torch.bfloat16)) for c in K2_CASES]
+             + [(c, (torch.bfloat16,)) for c in K2_ODD])
+    for (n, h, w, cin, cout, off), dtypes in cases:
         img, ph, k, b = _stem_inputs(n, h, w, cin, cout, gen)
         out_hw = ((h + 1) // 2, (w + 1) // 2)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
+            phd = offset_copy(ph.to(dtype), off)
+            if dtype == torch.bfloat16:
+                log(f"[k2] plan ({n},{h},{w},{cin})->{cout} off={off}: "
+                    f"{_k2_plan(phd, cout, out_hw)}")
             for relu in (False, True):
-                tag = (f"({n},{h},{w},{cin})->{cout} relu={int(relu)} "
-                       f"{str(dtype)[6:]}")
-                phd = ph.to(dtype)
-                got = kernels.stem_conv3x3_s2(phd, k, b, out_hw, relu=relu)
-                torch.cuda.synchronize()
-                if (tuple(got.shape) != (n, cout) + out_hw
-                        or got.dtype != dtype or not got.is_contiguous(
-                            memory_format=torch.channels_last)):
-                    raise AssertionError(f"{tag}: bad output {got.shape} "
-                                         f"{got.dtype} {got.stride()}")
-                ref = kernels.stem_conv3x3_s2_plain(
-                    phd.float(), k.to(dtype).float(), b, out_hw, relu=relu)
-                err = (f32_rel_check(got, ref, tag) if dtype == torch.float32
-                       else bf16_ulp_check(got, ref, tag))
-                results[tag] = err
-                log(f"[k2] {tag}: max_abs_err {err:.3g}")
-        if (h, w) == MAIN_OUT:
+                tag = (f"({n},{h},{w},{cin})->{cout} off={off} "
+                       f"relu={int(relu)} {str(dtype)[6:]}")
+                results[tag] = _k2_case(tag, phd, k, b, out_hw, relu)
+                log(f"[k2] {tag}: max_abs_err {results[tag]:.3g}")
+        if (h, w) == MAIN_OUT and n == 1:
             lib = F.conv2d(img.permute(0, 3, 1, 2), k, b, stride=2, padding=1)
             got = kernels.stem_conv3x3_s2(ph, k, b, out_hw)
             err = f32_rel_check(got, lib, "K2 vs cuDNN stem conv")
@@ -431,7 +472,11 @@ def time_k2():
     k, b = k.to(torch.bfloat16), b.to(torch.bfloat16)  # as dev_params hold
     out_hw = ((h + 1) // 2, (w + 1) // 2)
     km, bf = kernels.stem_weights(k, b, ph.dtype, ph.device)
-    ms = cuda_ms(
+    plan = _k2_plan(ph, cout, out_hw)
+    # a ~45 us kernel beside the wrapper's Python: the kernel's own time is
+    # the CUDA graph's; CUDA events around the prepared entry time both
+    ms = graph_ms(lambda: kernels.stem_conv3x3_s2_prepared(ph, km, bf, out_hw))
+    prepared_ms = cuda_ms(
         lambda: kernels.stem_conv3x3_s2_prepared(ph, km, bf, out_hw), 200)
     wrapper_ms = cuda_ms(
         lambda: kernels.stem_conv3x3_s2(ph, k, b, out_hw), 200)
@@ -452,13 +497,15 @@ def time_k2():
                + n * ho * wo * cout * 2)
     bd = bound(n_bytes, 2 * n * ho * wo * 9 * cin * cout, BF16_OPS_PER_S)
     log(f"[k2] deploy shape bf16 {tuple(ph.shape)} -> {(n, cout, ho, wo)}: "
-        f"kernel {ms:.4f} ms (wrapper with weight prep {wrapper_ms:.4f}), "
-        f"plain {plain_ms:.4f} ms, library (cuDNN stem conv) "
-        f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
-        f"{bd['bound_by']} ({bd['bytes']} B, {bd['ops']} ops)")
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        f"kernel {ms:.4f} ms in a CUDA graph ({prepared_ms:.4f} with CUDA "
+        f"events on the prepared entry, wrapper with weight prep "
+        f"{wrapper_ms:.4f}), plain {plain_ms:.4f} ms, library (cuDNN stem "
+        f"conv) {library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']} ({bd['bytes']} B, {bd['ops']} ops); plan {plan}")
+    return {"ms": ms, "graph_ms": ms, "prepared_ms": prepared_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"]}
+            "bound_by": bd["bound_by"], "plan": dataclasses.asdict(plan)}
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ K2 ``stem_conv3x3_s2``: the 3x3 / stride-2 / pad-1 stem conv from
 stride-2 phase planes (port of ``dcfp_tpu/ops/pallas_kernels.py``
 ``_stem_kernel`` / ``_stem_conv_planes``; source
 ``dcfp_tpu_torch/csrc/stem_conv.cu``); the first op of the ``phases``
-deploy body.
+deploy body.  Its bf16 launch (runs of output pixels, the staged
+footprint, the channel groups, the load and store routes) is planned on
+the host by :func:`stem_conv_plan`, cached per shape.
 
 K3 ``fused_bottleneck`` lives in ``dcfp_tpu_torch.ops.bottleneck``, the
 int8 probe's K5 ``tiled_mm`` and K6 ``chain_int8`` in
@@ -325,6 +327,153 @@ def _kernel_check(kernel: torch.Tensor) -> Tuple[int, int]:
     return int(kernel.shape[1]), int(kernel.shape[0])
 
 
+K2_TILES = (256, 128, 64, 32, 16)  # pixels of a run, in order of preference
+K2_THREADS = 256             # kThreads in the kernel
+K2_STAGES = 2                # footprint stages (double-buffered)
+K2_CHUNK = 64                # channels of an mma chunk (kNt * 8)
+K2_BLOCKS_PER_SM = 2         # kMinBlocks: the registers allow two an SM
+K2_SMS = 132                 # the H100's SMs
+# two blocks an SM: 228 KB an SM, 1 KB of it reserved for each block
+K2_SMEM_SOFT = (228 * 1024) // K2_BLOCKS_PER_SM - 1024
+K2_SMEM_MAX = 227 * 1024     # what one block may have on sm_90
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """The bf16 launch of K2 for one shape (see :func:`stem_conv_plan`)."""
+    m: int           # output pixels of a run (a tile), flattened (oy, ox)
+    ksteps: int      # 16-deep k-steps over the 9*cin taps
+    chunks: int      # 64-channel chunks of cout
+    cg: int          # chunks of a tile (all of them unless cout is wide)
+    groups: int      # channel groups: tiles of one run
+    threads: int
+    stages: int      # footprint stages in shared memory
+    rows: int        # output rows the longest run touches
+    line: int        # staged elements of a (plane, row offset) line
+    tiles: int       # runs x groups over the batch
+    grid: int        # persistent blocks (<= two an SM)
+    smem: int        # dynamic shared memory bytes of a block
+    load: str        # "4-byte" cp.async, or "2-byte" loads
+    store: str       # "bulk" (one copy a run) or "threads"
+
+
+def _k2_smem(cin: int, cout: int, m: int, line: int, cg: int, groups: int,
+             bulk: bool) -> int:
+    """K2's shared memory, the formula of ``csrc/stem_conv.cu``
+    ``smem_bytes``: the output buffers (two for the bulk route; a run of
+    m pixels, each row the tile's channels, + 16 bytes to place it at its
+    output address mod 16), two footprint stages (8*cin lines of ``line``
+    bf16), the B fragments (8 bytes a lane, 32 lanes, 8 n-tiles, each
+    k-step of each chunk) and the f32 bias of a group, then for each stage
+    an int slot a pixel and the run's 16-byte ``Meta`` (first pixel,
+    pixels)."""
+    ks = -(-9 * cin // 16)
+    ostride = cout if groups == 1 else K2_CHUNK * cg
+    return ((2 if bulk else 1) * (m * ostride * 2 + 16)
+            + K2_STAGES * 16 * cin * line + cg * ks * 8 * 32 * 8
+            + cg * K2_CHUNK * 4 + K2_STAGES * (m * 4 + 16))
+
+
+@functools.lru_cache(maxsize=256)
+def k2_runs(m: int, ho: int, wo: int) -> dict:
+    """The runs of m pixels of one image, as the kernel's ``run_of`` sees
+    them (numpy arrays, one entry a run): first pixel ``p0``, pixels
+    ``len``, first output row ``oy0``, output rows touched ``segs``,
+    segment 0's first staged column ``a0`` (even) and width ``w0``, the
+    last pixel's column ``bl`` and the staged ``width`` of a line.  Each
+    segment is staged from an even column with an even width, so 4-byte
+    words never straddle it: segment k is output row oy0 + k, columns
+    ``a0`` (k = 0) or 0 up to its last pixel's column + 1, rounded up to
+    even; ``wfull = (wo + 2) & ~1`` is a whole row's."""
+    total = ho * wo
+    p0 = np.arange(0, total, m, dtype=np.int64)
+    n = np.minimum(m, total - p0)
+    last = p0 + n - 1
+    oy0, oy1 = p0 // wo, last // wo
+    segs = oy1 - oy0 + 1
+    bl = last - oy1 * wo
+    a0 = (p0 - oy0 * wo) & ~1
+    w0 = (np.where(segs == 1, bl, wo - 1) + 3 - a0) & ~1
+    wfull = (wo + 2) & ~1
+    width = np.where(segs == 1, w0, w0 + (segs - 2) * wfull + ((bl + 3) & ~1))
+    runs = dict(p0=p0, len=n, oy0=oy0, segs=segs, a0=a0, w0=w0, bl=bl,
+                width=width, wfull=wfull)
+    for v in runs.values():
+        if isinstance(v, np.ndarray):
+            v.setflags(write=False)
+    return runs
+
+
+def _ptr_align(ptr: int) -> int:
+    """The largest power of two, up to 16, that divides ``ptr``."""
+    return 16 if ptr % 16 == 0 else ptr & -ptr
+
+
+@functools.lru_cache(maxsize=64)
+def stem_conv_plan(n: int, cin: int, cout: int, hp: int, wp: int, ho: int,
+                   wo: int, base_align: int) -> K2Plan:
+    """K2's bf16 launch for phases (n, 4*cin, hp, wp) whose first byte is
+    ``base_align``-aligned (a power of two up to 16), to (n, cout, ho, wo):
+    pure Python, cached, so a request costs a lookup.
+
+    A tile is a run of ``m`` consecutive output pixels of one image (its
+    output is one contiguous run, channels_last) and a group of 64-channel
+    chunks.  Among ``K2_TILES``, and the chunks of a tile from all of
+    them down, it takes the first whose shared memory fits two blocks an
+    SM (``K2_SMEM_SOFT``), else one (``K2_SMEM_MAX``); m = 16 with one
+    chunk a tile always fits.  Loads are 4-byte cp.async where Wp is even
+    and the base 4-byte aligned (every staged word is then aligned), else
+    2-byte; the run leaves in one bulk copy where cout % 8 == 0 and one
+    group holds every channel (the run's address and length are then
+    multiples of 16), else the threads store it."""
+    if min(n, cin, cout, ho, wo) < 1 or cin > 4:
+        raise ValueError(f"stem_conv_plan: bad shape n={n} cin={cin} "
+                         f"cout={cout} out={(ho, wo)}")
+    if hp < ho + 1 or wp < wo + 1:
+        raise ValueError(f"stem_conv_plan: planes {(hp, wp)} too small for "
+                         f"output {(ho, wo)}")
+    if ho * wo > 1 << 30:
+        raise ValueError(f"stem_conv_plan: {ho * wo} output pixels an image "
+                         f"(at most 2^30)")
+    ks = -(-9 * cin // 16)
+    chunks = -(-cout // K2_CHUNK)
+    load = "4-byte" if wp % 2 == 0 and base_align % 4 == 0 else "2-byte"
+    cgs = [chunks] + [c for c in (32, 16, 8, 4, 2, 1) if c < chunks]
+    for limit in (K2_SMEM_SOFT, K2_SMEM_MAX):
+        for cg in cgs:
+            groups = -(-chunks // cg)
+            bulk = groups == 1 and cout % 8 == 0
+            for m in K2_TILES:
+                runs = k2_runs(m, ho, wo)
+                line = int(runs["width"].max())
+                smem = _k2_smem(cin, cout, m, line, cg, groups, bulk)
+                if smem > limit:
+                    continue
+                blocks = K2_BLOCKS_PER_SM if smem <= K2_SMEM_SOFT else 1
+                tiles = n * len(runs["p0"]) * groups
+                if tiles > 1 << 30:  # the kernel's tile index is 32-bit
+                    raise ValueError(f"stem_conv_plan: {tiles} tiles "
+                                     f"(at most 2^30)")
+                return K2Plan(m, ks, chunks, cg, groups, K2_THREADS,
+                              K2_STAGES, int(runs["segs"].max()), line,
+                              tiles, min(tiles, blocks * K2_SMS), smem,
+                              load, "bulk" if bulk else "threads")
+    raise AssertionError("stem_conv_plan: 16 pixels and one chunk a tile "
+                         "(a few KB) must fit")
+
+
+def _k2_launch_args(plan: K2Plan) -> Tuple[int, ...]:
+    """The plan as the C entry takes it: m, line, cg, groups, grid, smem,
+    load4, bulk."""
+    return (plan.m, plan.line, plan.cg, plan.groups, plan.grid, plan.smem,
+            int(plan.load == "4-byte"), int(plan.store == "bulk"))
+
+
+# csrc/stem_conv.cu dcfp_stem_conv3x3_s2
+K2_ARGTYPES = [_VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _CI,
+               _VP] + [_CI] * 8 + [_VP]
+
+
 def stem_weights(kernel: torch.Tensor, bias, dtype: torch.dtype,
                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's weights as its C entry reads them: the (9*cin, cout) f32
@@ -390,7 +539,10 @@ def stem_conv3x3_s2_prepared(phases: torch.Tensor, km: torch.Tensor,
                              relu: bool = False) -> torch.Tensor:
     """:func:`stem_conv3x3_s2` on the weights of :func:`stem_weights`,
     made once for many calls (the ``phases`` deploy body does so).  The
-    plain version for CPU phases, one launch of K2 for CUDA phases."""
+    plain version for CPU phases, one launch of K2 for CUDA phases: in
+    bf16 the launch of :func:`stem_conv_plan` for their shape and the
+    alignment of their ``data_ptr()`` (phases off 4 bytes, or an odd Wp,
+    take the 2-byte loads)."""
     cin, cout = int(km.shape[0]) // 9, int(km.shape[1])
     if (km.shape[0] != 9 * cin or b.shape != (cout,)
             or km.dtype != torch.float32 or b.dtype != torch.float32
@@ -412,11 +564,13 @@ def stem_conv3x3_s2_prepared(phases: torch.Tensor, km: torch.Tensor,
                       device=phases.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    fn = c_entry("stem_conv", "dcfp_stem_conv3x3_s2",
-                 [_VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _CI,
-                  _VP, _VP])
+    n, _, hp, wp = (int(d) for d in phases.shape)
+    bf16 = phases.dtype == torch.bfloat16
+    plan = (_k2_launch_args(stem_conv_plan(
+        n, cin, cout, hp, wp, ho, wo, _ptr_align(phases.data_ptr())))
+        if bf16 else (0,) * 8)  # f32 runs its FMA kernel, no plan
+    fn = c_entry("stem_conv", "dcfp_stem_conv3x3_s2", K2_ARGTYPES)
     run_c_entry(fn, phases.device, "stem_conv3x3_s2", phases.data_ptr(),
-                int(phases.dtype == torch.bfloat16), int(phases.shape[0]),
-                cin, cout, int(phases.shape[2]), int(phases.shape[3]), ho, wo,
-                km.data_ptr(), b.data_ptr(), int(bool(relu)), out.data_ptr())
+                int(bf16), n, cin, cout, hp, wp, ho, wo, km.data_ptr(),
+                b.data_ptr(), int(bool(relu)), out.data_ptr(), *plan)
     return out

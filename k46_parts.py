@@ -1,18 +1,21 @@
-"""Where K1's, K6's and K4's time goes: their kernels with parts switched
-off, with design choices undone, on other tiles than the planners', or
-against other copies of their sources, on one CUDA card.
+"""Where K1's, K2's, K6's and K4's time goes: their kernels with parts
+switched off, with design choices undone, on other tiles than the
+planners', or against other copies of their sources, on one CUDA card.
 
     python3 k46_parts.py                  # parts, choices and tiles
     python3 k46_parts.py --sass           # also the bases' SASS counts
     python3 k46_parts.py --against DIR    # DIR's sources (A) vs the
                                           # tree's (B), in turns
+    python3 k46_parts.py --source stem_conv   # one kernel only
 
 Builds variants of ``dcfp_tpu_torch/csrc/resize_argmax.cu`` (K1),
-``int8_chain.cu`` (K6) and ``aspp.cu`` (K4) into
+``stem_conv.cu`` (K2), ``int8_chain.cu`` (K6) and ``aspp.cu`` (K4) into
 ``.chip_tree/k46_parts/`` (git-ignored), each with one source edit,
 and times each through its C entry: K1 at the deploy shape (1 x 19 x
 129 x 257 bf16 -> 1025 x 2049, align_corners, channels_last,
-``chip_smoke.time_k1``'s input) in a CUDA graph, K6 at the int8 probe's
+``chip_smoke.time_k1``'s input) and K2 at the deploy shape (1 x 12 x
+536 x 1026 bf16 -> 64 x 513 x 1025 channels_last,
+``chip_smoke.time_k2``'s input) in a CUDA graph, K6 at the int8 probe's
 stage-B shape and the pruned R101's layer3 (``chip_smoke.py``'s inputs)
 and K4 at the ASPP probe's stage B (129 x 257 x 2048 -> 3 x 128, seeded
 like the served layer4 output) with CUDA events, 30 launches after 5.
@@ -20,14 +23,17 @@ The bases are also timed on tiles other than the planners'.
 
 A variant that removes a part is wrong by design, and only its time
 means something: a part costs at most base minus the variant without
-it.  A variant that undoes a design choice (``CHOICES``), and K1's base
-on another tile, must give the base's labels bit for bit, and the
-script fails if they do not.  ``--sass`` prints the opcode counts of
-every kernel of each base library (``cuobjdump``) and writes its SASS
-beside the builds.  ``--against DIR`` times DIR's copy of each source
-(an older version with the same C entry; the headers are DIR's too)
-against the tree's in turns, A, B, B, A; a source whose C entry differs
-in DIR is skipped, with a line that says so.
+it.  A variant that undoes a design choice (``CHOICES``: K2's threads
+storing the runs in place of the bulk copy among them), and K1's and
+K2's bases on other tiles (K2: other run lengths and grids), must give
+the base's output bit for bit, and the script fails if they do not.
+``--sass`` prints the opcode counts of every kernel of each base
+library (``cuobjdump``) and writes its SASS beside the builds.
+``--against DIR`` times DIR's copy of each source (an older version
+with the same C entry; the headers are DIR's too) against the tree's in
+turns, A, B, B, A; a source whose C entry differs in DIR is skipped,
+and one whose C entry refuses the tree's plan is not timed, each with a
+line that says so.
 
 Prints the build's registers and spills, one line per case and variant
 (or turn), then the card's name and power limit; exits non-zero without
@@ -58,6 +64,11 @@ OUT = Path(__file__).resolve().parent / ".chip_tree" / "k46_parts"
 K1_W_PASS = ("// Step 3: the W pass of this chunk, four channels a load\n"
              "#pragma unroll\n    for (int cc = 0; cc < kChunk; cc += 4) {")
 
+K2_STAGE = ("stage_run<true>(ph, r, S, P.line, stage + b * selems, warp, "
+            "lane);")
+K2_MMA = ('  asm volatile(\n'
+          '      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "')
+
 # source: (C entry, argtypes, {variant: [(text, replacement)]})
 KERNELS = {
     "resize_argmax": ("dcfp_resize_argmax_cm", kernels.K1_ARGTYPES, {
@@ -81,6 +92,40 @@ KERNELS = {
         "no_h_pass": [("h_pass(as, zs, rtap, rwt, min(kChunk, C),",
                        "if (C < 0) h_pass(as, zs, rtap, rwt, "
                        "min(kChunk, C),")],
+    }),
+    "stem_conv": ("dcfp_stem_conv3x3_s2", kernels.K2_ARGTYPES, {
+        "base": [],
+        # route (b) at the base's plan: the threads store each run
+        "threads_store": [("static_cast<const float*>(bias), S, P,",
+                           "static_cast<const float*>(bias), S, Plan{P.m, "
+                           "P.line, P.cg, P.groups, P.load4, 0},")],
+        # no footprint loads: A is built from what the stages hold
+        "no_stage": [(K2_STAGE, "{ if (t < 0) " + K2_STAGE + " }")],
+        # the 2-byte loads where the plan takes 4-byte cp.async
+        "load2": [("if (P.load4)\n      stage_run<true>",
+                   "if (false)\n      stage_run<true>")],
+        # no tensor-core product; each accumulator still reads A and B
+        "no_mma": [(K2_MMA, "if (b.x != 0x7f7f7f7fu) {\n" + "".join(
+            f"    acc[{i}] += __uint_as_float((a[{i}] ^ b.{'xy'[i & 1]})"
+            f" & 0x3f800000u);\n" for i in range(4))
+            + "    return;\n  }\n" + K2_MMA)],
+        # no output store: the runs stay in shared memory
+        "no_store": [("bulk_store(dst, ob,",
+                      "if (len < 0) bulk_store(dst, ob,")],
+        # no quad transpose: each lane stores its own fragment words
+        "no_transpose": [("quad_transpose(wv[0], tig);", ""),
+                         ("quad_transpose(wv[1], tig);", "")],
+        # no stores to the output buffer (the values still computed)
+        "no_buffer_store": [(
+            "if (lc < nch)\n                *reinterpret_cast",
+            "if (lc < nch && v.x == 0x7fc17fc1u)\n"
+            "                *reinterpret_cast")],
+        # registers uncapped: launch bounds for one block an SM
+        "min_blocks_1": [("constexpr int kMinBlocks = 2;",
+                          "constexpr int kMinBlocks = 1;")],
+        # 85 registers, three blocks an SM (at M = 128: ``K2_VTILES``)
+        "min_blocks_3": [("constexpr int kMinBlocks = 2;",
+                          "constexpr int kMinBlocks = 3;")],
     }),
     "int8_chain": ("dcfp_chain_int8",
                    [_VP, _VP, _VP, _VP, _CF, _CF, _CF, _VP] + [_CI] * 9
@@ -137,10 +182,16 @@ KERNELS = {
 }
 # variants that must give the base's output bit for bit
 CHOICES = {("resize_argmax", v) for v in ("no_pairs", "adjacent",
-                                          "min_blocks_1")}
+                                          "min_blocks_1")} | {
+    ("stem_conv", v) for v in ("threads_store", "load2", "min_blocks_1",
+                               "min_blocks_3")}
 
 # other tiles to time the bases on: K1 (TR, TW), K6 and K4 (R, S, stages)
 K1_TILES = [(4, 256), (8, 128), (4, 128), (16, 128), (2, 256)]
+# K2 (run length M, grid): two, three and four blocks an SM
+K2_TILES = [(128, 264), (128, 396), (128, 528), (256, 132), (64, 528)]
+# K2 variants timed on another tile than the plan's
+K2_VTILES = {"min_blocks_3": (128, 396)}
 K6_TILES = {"probe": [(8, 16, 2), (6, 21, 4), (11, 11, 4), (5, 25, 4)],
             "layer3": [(11, 11, 4), (10, 12, 4), (6, 21, 4)]}
 K4_TILES = [(16, 16, 4), (4, 64, 4), (8, 16, 4), (8, 32, 3), (8, 32, 2)]
@@ -156,6 +207,7 @@ class Case:
     keep: tuple          # tensors the arguments point into
     out: Optional[torch.Tensor] = None  # output checked against the base's
     graph: bool = False  # timed in a CUDA graph, else with CUDA events
+    vtiles: dict = dataclasses.field(default_factory=dict)  # variant: tile
 
 
 def build(jobs):
@@ -236,12 +288,40 @@ def k1_case():
                 out, graph=True)
 
 
+def k2_case():
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, h, w, cin, cout = cs.K2_CASES[-1]
+    _, ph, k, b = cs._stem_inputs(n, h, w, cin, cout, gen)
+    ph = ph.to(torch.bfloat16)
+    km, bf = kernels.stem_weights(k.to(torch.bfloat16), b.to(torch.bfloat16),
+                                  ph.dtype, ph.device)
+    _, _, hp, wp = ph.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device="cuda")
+    plan = kernels.stem_conv_plan(n, cin, cout, hp, wp, ho, wo,
+                                  kernels._ptr_align(ph.data_ptr()))
+
+    def tile(m, grid):
+        line = int(kernels.k2_runs(m, ho, wo)["width"].max())
+        return (m, line, 1, 1, grid,
+                kernels._k2_smem(cin, cout, m, line, 1, 1, True), 1, 1)
+
+    head = (ph.data_ptr(), 1, n, cin, cout, hp, wp, ho, wo, km.data_ptr(),
+            bf.data_ptr(), 0, out.data_ptr())
+    return Case("k2 deploy", "stem_conv", head,
+                kernels._k2_launch_args(plan),
+                [tile(*t) for t in K2_TILES], (ph, km, bf), out, graph=True,
+                vtiles={v: tile(*t) for v, t in K2_VTILES.items()})
+
+
 def cases(sources):
-    """The cases of ``sources``: K1 at the deploy shape, K6 at both
+    """The cases of ``sources``: K1 and K2 at the deploy shape, K6 at both
     shapes, K4 at stage B."""
     out = []
     if "resize_argmax" in sources:
         out.append(k1_case())
+    if "stem_conv" in sources:
+        out.append(k2_case())
     if "int8_chain" in sources:
         for seed, (shape, (h0, w, cin, cm, cout)) in enumerate(
                 cs.K6_SHAPES.items(), 1):
@@ -308,9 +388,11 @@ def main():
     ap.add_argument("--against", default=None,
                     help="a directory with other copies of the sources and "
                          "their headers, timed in turns against the tree's")
+    ap.add_argument("--source", action="append", choices=list(KERNELS),
+                    help="only these sources (repeatable; default all)")
     opts = ap.parse_args()
     cs.phase_device()
-    sources = list(KERNELS)
+    sources = opts.source or list(KERNELS)
     if opts.against:
         other = Path(opts.against).resolve()
         ab = []
@@ -329,7 +411,11 @@ def main():
                      for v, d in (("A", other), ("B", cb.CSRC_DIR))})
         for case in cases(ab):
             a, b = fns[case.source, "A"], fns[case.source, "B"]
-            t = [time_ms(case, f, case.tile) for f in (a, b, b, a)]
+            try:
+                t = [time_ms(case, f, case.tile) for f in (a, b, b, a)]
+            except RuntimeError as e:  # A's C entry refused B's plan
+                print(f"[k46_parts] {case.tag}: not timed, {e}", flush=True)
+                continue
             print(f"[k46_parts] {case.tag} tile {list(case.tile)}: A "
                   f"{t[0]:.4f} B {t[1]:.4f} B {t[2]:.4f} A {t[3]:.4f} ms",
                   flush=True)
@@ -350,7 +436,8 @@ def main():
             for (src, name), fn in fns.items():
                 if src != case.source:
                     continue
-                ms = time_ms(case, fn, case.tile)
+                vt = case.vtiles.get(name, case.tile)
+                ms = time_ms(case, fn, vt)
                 same = ""
                 if want is not None:
                     equal = bool(torch.equal(case.out, want))
@@ -358,7 +445,7 @@ def main():
                         raise SystemExit(f"k46_parts: {case.tag} {name} "
                                          f"changed the output")
                     same = f"; output equal to base {equal}"
-                print(f"[k46_parts] {case.tag} tile {list(case.tile)} "
+                print(f"[k46_parts] {case.tag} tile {list(vt)} "
                       f"{name}: {ms:.4f} ms{same}", flush=True)
             for other in case.others:
                 ms = time_ms(case, base, other)

@@ -1,5 +1,5 @@
-"""Time the port's K1, K3, K4, K5 and K6 in two checkouts of the repo, in
-turns, on one CUDA card: A, B, B, A.
+"""Time the port's K1-K6 in two checkouts of the repo, in turns, on one
+CUDA card: A, B, B, A.
 
     python3 pair_times.py PARENT_DIR CHANGE_DIR [--out FILE]
 
@@ -11,14 +11,17 @@ deploy shape, 1 x 19 x 129 x 257 bf16 -> 1025 x 2049, channels_last and
 NCHW, in a CUDA graph; K4 at the ASPP probe's stage B, 129 x 257 x 2048
 -> 3 x 128 on seeded data; K6 at the int8 probe's stage-B shape and the
 pruned layer3's, on ``chip_smoke.py``'s inputs; CUDA events over 30
-launches after 5, on weights prepared once), so both sides use the same
-inputs, timers and yardsticks.  Each turn also prints the sha256 of K1's
-labels on every case of this checkout's ``chip_smoke.K1_CASES`` and
-``K1_ODD`` (f32 and bf16, NCHW and channels_last), from logits made on
-the card from a fixed seed, and the last lines say whether A's and B's
-labels are bit-equal.  Prints one JSON line per turn and, last, the
-card's name and power limit; exits non-zero without a card.  About 45 s
-a turn on an H100.
+launches after 5, on weights prepared once; K2 at the deploy shape,
+1 x 12 x 536 x 1026 bf16 -> 64 x 513 x 1025 channels_last, on weights
+prepared once, in a CUDA graph), so both sides use the same inputs,
+timers and yardsticks.  Each turn also prints the sha256 of K1's labels
+on every case of this checkout's ``chip_smoke.K1_CASES`` and ``K1_ODD``
+(f32 and bf16, NCHW and channels_last), and of K2's bf16 output (ReLU
+off and on) on every case of its ``K2_CASES`` and ``K2_ODD``, from
+inputs made on the card from a fixed seed, and the last lines say
+whether A's and B's labels and K2 outputs are bit-equal.  Prints one
+JSON line per turn and, last, the card's name and power limit; exits
+non-zero without a card.  About 50 s a turn on an H100.
 """
 
 import argparse
@@ -75,9 +78,47 @@ for shape, out_hw, ac in json.loads(sys.argv[1]):
                      .cpu().numpy().tobytes())
         digests[f"{tuple(shape)}->{tuple(out_hw)} ac={ac} "
                 f"{str(dtype)[6:]}"] = h.hexdigest()
+gen = torch.Generator(device="cuda").manual_seed(3)
+n, h, w, cin, cout = cs.K2_CASES[-1]
+img, ph, k, b = cs._stem_inputs(n, h, w, cin, cout, gen)
+ph = ph.to(torch.bfloat16)
+km, bf = kernels.stem_weights(k.to(torch.bfloat16), b.to(torch.bfloat16),
+                              ph.dtype, ph.device)
+out_hw = ((h + 1) // 2, (w + 1) // 2)
+out["k2 deploy"] = cs.graph_ms(
+    lambda: kernels.stem_conv3x3_s2_prepared(ph, km, bf, out_hw))
+del img, ph
+from dcfp_tpu_torch.ops.stem import extract_stem_phases
+gen = torch.Generator(device="cuda").manual_seed(8)
+k2 = {}
+for n, h, w, cin, cout, off in json.loads(sys.argv[2]):
+    img = torch.randn((n, h, w, cin), device="cuda", generator=gen)
+    k = torch.randn((cout, cin, 3, 3), device="cuda", generator=gen) * 0.1
+    b = torch.randn(cout, device="cuda", generator=gen)
+    ph = torch.stack([extract_stem_phases(img[i]) for i in range(n)]).to(
+        torch.bfloat16)
+    if off:  # data_ptr() off 4 bytes
+        buf = torch.empty(ph.numel() + off, dtype=ph.dtype, device="cuda")
+        ph = buf[off:].view(ph.shape).copy_(ph)
+    h_ = hashlib.sha256()
+    for relu in (False, True):
+        y = kernels.stem_conv3x3_s2(ph, k, b, ((h + 1) // 2, (w + 1) // 2),
+                                    relu=relu)
+        h_.update(y.view(torch.int16).cpu().numpy().tobytes())
+    k2[f"({n},{h},{w},{cin})->{cout} off={off}"] = h_.hexdigest()
 print("PAIR " + json.dumps(out), flush=True)
 print("K1LABELS " + json.dumps(digests), flush=True)
+print("K2OUT " + json.dumps(k2), flush=True)
 """
+
+
+def _agree(turns, what):
+    """One JSON line: whether every turn's digests agree, case by case."""
+    differ = sorted(k for k in turns[0]
+                    if len({d.get(k) for d in turns}) > 1)
+    print(json.dumps({f"{what}_bit_equal_a_b": not differ,
+                      "cases": len(turns[0]), "differing": differ}),
+          flush=True)
 
 
 def main():
@@ -92,13 +133,15 @@ def main():
                          text=True, timeout=60)
     if smi.returncode != 0:
         raise SystemExit("pair_times: no CUDA card (nvidia-smi failed)")
-    from chip_smoke import K1_CASES, K1_ODD
+    from chip_smoke import K1_CASES, K1_ODD, K2_CASES, K2_ODD
     cases = json.dumps(K1_CASES + K1_ODD)
+    k2_cases = json.dumps([c + (0,) for c in K2_CASES] + K2_ODD)
     log = open(opts.out, "a") if opts.out else None
-    labels = []
+    labels, k2 = [], []
     for turn, tree in enumerate((opts.a, opts.b, opts.b, opts.a)):
-        proc = subprocess.run([sys.executable, "-c", TURN, cases], cwd=tree,
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, "-c", TURN, cases, k2_cases],
+                              cwd=tree, capture_output=True, text=True,
+                              timeout=900)
         if log:
             log.write(f"==== turn {turn} {tree}\n{proc.stdout}{proc.stderr}")
         if proc.returncode != 0:
@@ -108,16 +151,16 @@ def main():
                     if x.startswith("PAIR "))
         print(json.dumps({"turn": turn, "tree": tree,
                           "times": json.loads(line[5:])}), flush=True)
+        lines = proc.stdout.splitlines()
         labels.append(json.loads(next(
-            x for x in proc.stdout.splitlines()
-            if x.startswith("K1LABELS "))[9:]))
-    for turn, digests in enumerate(labels):
-        print(json.dumps({"turn": turn, "k1_label_sha256": digests}),
-              flush=True)
-    differ = sorted(k for k in labels[0] if len({d.get(k) for d in labels}) > 1)
-    print(json.dumps({"k1_labels_bit_equal_a_b": not differ,
-                      "cases": len(labels[0]), "differing": differ}),
-          flush=True)
+            x for x in lines if x.startswith("K1LABELS "))[9:]))
+        k2.append(json.loads(next(
+            x for x in lines if x.startswith("K2OUT "))[6:]))
+    for turn, (digests, outs) in enumerate(zip(labels, k2)):
+        print(json.dumps({"turn": turn, "k1_label_sha256": digests,
+                          "k2_output_sha256": outs}), flush=True)
+    _agree(labels, "k1_labels")
+    _agree(k2, "k2_outputs")
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
