@@ -43,27 +43,43 @@ exits non-zero without them.  Phases, each of which raises on failure:
    also on shapes off every tile of theirs (K6 with Cm 80 and W below a
    tile; K4 with W below a tile and with tiles whose d = 36 branch keeps
    only its centre tap);
-7. one JSON line with every ported kernel: launches on its path, its
+7. the train step (``phase_train``), which launches none of K1-K6: one
+   flagship (DeepLabV3-R50, deepsup) GSRL + EIC + SGD step on the card
+   against the same step on the CPU (batch 2, 65x65, f32, TF32 off),
+   held against the CPU step's own rounding noise; the finetune recipe
+   (batch 8, 769x769, f32, compact batches, dropout on) through
+   ``TrainLoop`` for 6 steps, with PyTorch's default TF32 setting: ms a
+   step, img/s, peak memory, losses, grad norms, EIC; and one step with
+   ``remat_segments=4`` against one without (batch 2, 129x129), equal;
+8. one JSON line with every ported kernel: launches on its path, its
    check, its time beside its bound, plain and library times;
-8. last line: ``{"ok": true, "device": {...}}``.
+9. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
 import dataclasses
+import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dcfp_tpu_torch.bridge import params_from_numpy, params_to_numpy
+from dcfp_tpu_torch.bridge import (eic_to_numpy, params_from_numpy,
+                                   params_to_numpy)
 from dcfp_tpu_torch.engine.deploy import (benchmark, fold_batchnorm,
                                           make_inference_fn,
                                           make_split_inference_fn)
+from dcfp_tpu_torch.engine.optim import build_optimizer
+from dcfp_tpu_torch.engine.trainer import (TrainLoop, create_train_state,
+                                           make_train_step)
 from dcfp_tpu_torch.graph.apply import graph_apply, init_graph
+from dcfp_tpu_torch.losses.criteria import build_criterions
 from dcfp_tpu_torch.models.registry import build_model
 from dcfp_tpu_torch.ops import aspp, bottleneck, int8, kernels
 from dcfp_tpu_torch.ops.resize import resize_bilinear
@@ -1480,6 +1496,305 @@ def phase_serve_phases(graph, pparams, pstate, images, nchw_answers):
             "k2_max_abs_err": err, "timing": timing}
 
 
+# ---------------------------------------------------------------------------
+# 7. the train step
+# ---------------------------------------------------------------------------
+
+# the flagship train model (__graft_entry__._flagship with deepsup)
+FLAGSHIP_CFG = dict(R101_CFG, backbone="resnet50", deepsup=True)
+NORMALIZE = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+def _train_batch(rng, n, hw, compact):
+    """GSRL labels with ~5% ignored pixels.  Compact: uint8 image, the
+    ``pad`` triple set on half the images (every other one flipped),
+    uint8 labels and a (n, 20) ``weight_class``; else an f32 image and
+    an f32 per-pixel weight map."""
+    ori = rng.integers(0, 19, (n, hw, hw))
+    ori[rng.random((n, hw, hw)) < 0.05] = 255
+    if not compact:
+        return {"img": rng.standard_normal((n, hw, hw, 3)).astype(np.float32),
+                "label": {"ori": ori, "weight": rng.uniform(
+                    0.5, 2.0, (n, hw, hw)).astype(np.float32)}}
+    wc = rng.uniform(0.05, 1.0, (n, 20)).astype(np.float32)
+    wc[:, -1] = 0.0
+    pad = np.array([[hw, hw, 0] if i % 2 == 0 else
+                    [hw - 57, hw - 101, (i // 2) % 2] for i in range(n)],
+                   np.int32)
+    return {"img": rng.integers(0, 256, (n, hw, hw, 3)).astype(np.uint8),
+            "label": {"ori": ori.astype(np.uint8), "weight_class": wc},
+            "pad": pad}
+
+
+def _update_agreement(new, ref, old):
+    """The relative L2 error of the whole update ``new - old`` against
+    ``ref - old``, each tensor's cosine and norm ratio, and the largest
+    per-tensor max|diff| / max|ref update|."""
+    num = den = worst = 0.0
+    cos, ratio = [], []
+    for n in old:
+        for k in old[n]:
+            a = (new[n][k] - old[n][k]).ravel().astype(np.float64)
+            b = (ref[n][k] - old[n][k]).ravel().astype(np.float64)
+            num += ((a - b) ** 2).sum()
+            den += (b ** 2).sum()
+            cos.append(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+            ratio.append(np.linalg.norm(a) / np.linalg.norm(b))
+            worst = max(worst, np.abs(a - b).max() / np.abs(b).max())
+    return (float(np.sqrt(num / den)), float(min(cos)), float(min(ratio)),
+            float(max(ratio)), float(worst))
+
+
+def _vec_rel_l2(a, b):
+    a = np.concatenate([a[n] for n in b]).astype(np.float64)
+    b = np.concatenate([b[n] for n in b]).astype(np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def train_card_vs_cpu(n=2, hw=65, device="cuda"):
+    """One flagship GSRL + EIC + SGD step (lr 0.01, momentum 0.9, wd 5e-4,
+    warmup -1) on the card and on the CPU from the same numpy params and
+    batch, dropout off, TF32 off.  The f32 train-mode step at this size is
+    ill-conditioned (batch-2 BN moments), so the update is held against
+    the CPU step's own noise: the same step with the image scaled by
+    1 + 2^-22.  Holds: loss rtol 1e-4; BN running statistics within
+    1e-3 x max|value|; the whole update's relative L2 error within 2x
+    that noise (and 0.1), each tensor's cosine >= 0.99 and norm ratio
+    within 5%; EIC within 2x the noise, a flipped channel only where
+    |g w| <= 0.05 x max|g w|."""
+    lr, wd = 0.01, 5e-4
+    model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    params, state = init_graph(model.graph, torch.Generator().manual_seed(0),
+                               device="cpu")
+    np_p, np_s = params_to_numpy(params, state)
+    crit = build_criterions("gsrl", ignore_label=255)
+    batch = _train_batch(np.random.default_rng(1), n, hw, compact=False)
+    nudged = dict(batch, img=batch["img"] * np.float32(1 + 2.0 ** -22))
+
+    def one(dev, b):
+        opt = build_optimizer(optim="sgd", learning_rate=lr, momentum=0.9,
+                              weight_decay=wd, num_steps=100, warmup=-1)
+        p, s = params_from_numpy(np_p, np_s, device=dev)
+        st = create_train_state(model, p, s, opt, prune_type="dcfp",
+                                device=dev)
+        new, m = make_train_step(model, crit, opt, device=dev)(st, b)
+        newp, news = params_to_numpy(new.params, new.bn_state)
+        return (newp, news, eic_to_numpy(new.eic), float(m["loss"]),
+                float(m["grad_norm"]))
+
+    t0 = time.perf_counter()
+    card = one(device, batch)
+    cpu = one("cpu", batch)
+    noise = one("cpu", nudged)
+    secs = time.perf_counter() - t0
+    loss_rel = abs(card[3] - cpu[3]) / abs(cpu[3])
+    bn_worst = max(float(np.abs(card[1][b][k] - cpu[1][b][k]).max()
+                         / np.abs(cpu[1][b][k]).max())
+                   for b in cpu[1] for k in cpu[1][b])
+    err, cos, rmin, rmax, worst = _update_agreement(card[0], cpu[0], np_p)
+    noise_err = _update_agreement(noise[0], cpu[0], np_p)[0]
+    eic_err = _vec_rel_l2(card[2], cpu[2])
+    eic_noise = _vec_rel_l2(noise[2], cpu[2])
+    gw = {b: np.abs(((cpu[0][b]["scale"] - np_p[b]["scale"]) / -lr
+                     - wd * np_p[b]["scale"]) * np_p[b]["scale"])
+          for b in cpu[2]}
+    gw_max = max(v.max() for v in gw.values())
+    flips = bad_flips = 0
+    for b in cpu[2]:
+        flipped = (card[2][b] > 0) != (cpu[2][b] > 0)
+        flips += int(flipped.sum())
+        bad_flips += int((gw[b][flipped] > 0.05 * gw_max).sum())
+    summary = {
+        "batch": [n, hw, hw], "loss_card": card[3], "loss_cpu": cpu[3],
+        "loss_rel_err": loss_rel, "grad_norm_card": card[4],
+        "grad_norm_cpu": cpu[4], "bn_stats_max_err_rel_to_max": bn_worst,
+        "update_rel_l2": err, "cpu_self_noise_update_rel_l2": noise_err,
+        "update_min_cos": cos, "update_norm_ratio": [rmin, rmax],
+        "update_max_err_rel_to_max_update": worst,
+        "eic_rel_l2": eic_err, "cpu_self_noise_eic_rel_l2": eic_noise,
+        "eic_flipped_channels": flips, "eic_flips_above_5pct_gw": bad_flips,
+        "seconds": secs}
+    log("[train] card vs CPU, one flagship GSRL+EIC+SGD step, f32, TF32 "
+        "off: " + json.dumps(summary))
+    if not (loss_rel <= 1e-4 and bn_worst <= 1e-3
+            and err <= min(2 * noise_err, 0.1) and cos >= 0.99
+            and 0.95 <= rmin and rmax <= 1.05
+            and eic_err <= 2 * eic_noise and bad_flips == 0):
+        raise AssertionError("train step: the card and the CPU differ")
+    return summary
+
+
+def train_recipe(n=8, hw=769, steps=6, device="cuda"):
+    """The finetune.sh GSRL recipe on the flagship with EIC: batch 8,
+    769x769, f32, deepsup (ds_weight 0.4), SGD lr 0.01, momentum 0.9,
+    wd 0.001, warmup 1000, 36000 steps, spatial dropout from a seeded
+    generator; ``TrainLoop`` for ``steps`` steps on compact batches with
+    PyTorch's default TF32 setting.  If the batch does not fit, it runs
+    again with ``remat_segments=2``."""
+    model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    params, state = init_graph(model.graph, torch.Generator().manual_seed(0),
+                               device=device)
+    rng = np.random.default_rng(2)
+    batches = [_train_batch(rng, n, hw, compact=True) for _ in range(2)]
+    opt = build_optimizer(optim="sgd", learning_rate=0.01, momentum=0.9,
+                          weight_decay=0.001, num_steps=36000, warmup=1000)
+    crit = build_criterions("gsrl", ignore_label=255,
+                            loss_para={"ds_weight": 0.4})
+    tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark}
+    tries = []
+    for remat in (0, 2):
+        times, seen = [], []
+
+        def hook(st, step):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+            seen.append(step)
+
+        state0 = create_train_state(model, params, state, opt,
+                                    prune_type="dcfp", device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "metrics.jsonl")
+            loop = TrainLoop(model=model, criterion=crit, optimizer=opt,
+                             num_steps=steps, lr_schedule=opt.schedule,
+                             save_pred_every=1, snapshot_hook=hook,
+                             log_every=1, prune_type="dcfp",
+                             normalize=NORMALIZE, metrics_file=path,
+                             remat_segments=remat)
+            t0 = time.perf_counter()
+            try:
+                final = loop.run(state0, itertools.cycle(batches),
+                                 generator=torch.Generator().manual_seed(3),
+                                 device=device)
+            except torch.cuda.OutOfMemoryError as exc:
+                tries.append({"remat_segments": remat, "fit": False,
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "error": str(exc).splitlines()[0][:200]})
+                log(f"[train] recipe step at remat_segments={remat} ran out "
+                    f"of memory: {tries[-1]}")
+                del state0, loop
+                torch.cuda.empty_cache()
+                continue
+            with open(path) as f:
+                lines = [json.loads(ln) for ln in f]
+        peak = torch.cuda.max_memory_allocated()
+        tries.append({"remat_segments": remat, "fit": True,
+                      "peak_bytes": peak})
+        break
+    else:
+        raise AssertionError(f"train recipe: no try fit the card: {tries}")
+    step_ms = np.diff([t0] + times) * 1e3
+    med = float(np.median(step_ms[2:6]))
+    nonzero = sum(int((v > 0).sum()) for v in final.eic.values())
+    total = sum(v.numel() for v in final.eic.values())
+    moved = any(not torch.equal(final.bn_state[b][k], state[b][k])
+                for b in state for k in state[b])
+    result = {
+        "batch": [n, hw, hw], "dtype": "float32", "steps": steps,
+        "tf32": tf32, "tries": tries, "step_ms": step_ms.tolist(),
+        "median_ms_steps_3_to_6": med, "img_per_s": n * 1e3 / med,
+        "max_memory_allocated_bytes": peak,
+        "loss": [ln["loss"] for ln in lines],
+        "grad_norm": [ln["grad_norm"] for ln in lines],
+        "lr": [ln["lr"] for ln in lines],
+        "eic_nonzero_channels": [nonzero, total],
+        "bn_running_stats_moved": moved, "snapshot_steps": seen}
+    log("[train] recipe: " + json.dumps(result))
+    if not all(np.isfinite(result["loss"] + result["grad_norm"])):
+        raise AssertionError("train recipe: a loss or grad norm is not finite")
+    if nonzero == 0:
+        raise AssertionError("train recipe: the EIC is all zero")
+    if not seen or seen[-1] != steps:
+        raise AssertionError(f"train recipe: no snapshot at step {steps}")
+    if len(lines) != steps:
+        raise AssertionError(f"train recipe: {len(lines)} metrics lines")
+    if not moved:
+        raise AssertionError("train recipe: BN running stats did not move")
+    return result
+
+
+def train_remat_replay(n=2, hw=129, device="cuda"):
+    """One flagship GSRL step with remat_segments=4 against the same step
+    without remat, same generator seed (the deepsup dropout is live),
+    TF32 off and deterministic cuDNN: each tensor's update within 1e-5 x
+    its max |update|, the loss and BN statistics equal."""
+    model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    params, state = init_graph(model.graph, torch.Generator().manual_seed(0),
+                               device=device)
+    batch = _train_batch(np.random.default_rng(4), n, hw, compact=False)
+    crit = build_criterions("gsrl", ignore_label=255)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        runs = []
+        for segs in (0, 4):
+            opt = build_optimizer(optim="sgd", learning_rate=0.01,
+                                  num_steps=100)
+            st = create_train_state(model, params, state, opt, device=device)
+            step = make_train_step(model, crit, opt, device=device,
+                                   remat_segments=segs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            new, m = step(st, batch, torch.Generator().manual_seed(5))
+            torch.cuda.synchronize()
+            runs.append((new, float(m["loss"]),
+                         torch.cuda.max_memory_allocated()))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    (plain, l0, peak0), (remat, l1, peak1) = runs
+    worst = 0.0
+    for b in params:
+        for k in params[b]:
+            du0 = plain.params[b][k] - params[b][k]
+            du1 = remat.params[b][k] - params[b][k]
+            worst = max(worst, float((du1 - du0).abs().max()
+                                     / du0.abs().max()))
+    bn_equal = all(torch.equal(plain.bn_state[b][k], remat.bn_state[b][k])
+                   for b in state for k in state[b])
+    result = {"batch": [n, hw, hw], "loss_plain": l0, "loss_remat4": l1,
+              "update_max_err_rel_to_max_update": worst,
+              "bn_stats_equal": bn_equal, "peak_bytes_plain": peak0,
+              "peak_bytes_remat4": peak1}
+    log("[train] remat replay: " + json.dumps(result))
+    if not (worst <= 1e-5 and l0 == l1 and bn_equal):
+        raise AssertionError("train step: remat_segments=4 differs")
+    return result
+
+
+def phase_train():
+    """The train step on the card: against the CPU, the recipe at full
+    width, and the remat replay.  The train path launches none of K1-K6:
+    the counts are set to 0 before and read after."""
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    vs_cpu = train_card_vs_cpu()
+    # PyTorch's defaults for the recipe's step: cuDNN TF32 on, matmul
+    # TF32 off, no cuDNN autotuning (serving turned it on; on an H100 its
+    # search took 69 s and an 80.9 GB peak of trial workspaces in the
+    # first train step, which the peak-memory reading would report)
+    cudnn = torch.backends.cudnn
+    serving_benchmark = cudnn.benchmark
+    cudnn.allow_tf32, cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        recipe = train_recipe()
+    finally:
+        cudnn.allow_tf32, cudnn.benchmark = False, serving_benchmark
+    torch.cuda.empty_cache()
+    remat = train_remat_replay()
+    launches = dict(kernels.LAUNCHES)
+    log(f"[train] kernel launches during the train phase (K1-K6 are not on "
+        f"the train path): {launches}")
+    if any(launches.values()):
+        raise AssertionError("the train path launched a kernel")
+    torch.cuda.empty_cache()
+    return {"vs_cpu": vs_cpu, "recipe": recipe, "remat": remat}
+
+
 def main():
     phase_device()
     phase_build()
@@ -1497,6 +1812,7 @@ def main():
     k6_launches, k6_check, k6_time = phase_k6()
     k4_launches, k4_check, k4_time = phase_k4(k4_case)
     del k4_case
+    phase_train()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()

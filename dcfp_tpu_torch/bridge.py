@@ -42,6 +42,17 @@ def _to_np(key: str, t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
+def _tree_from_np(tree, dev: torch.device,
+                  dtype: Optional[torch.dtype] = None):
+    return {n: {k: _from_np(k, v, dev, dtype) for k, v in d.items()}
+            for n, d in tree.items()}
+
+
+def _tree_to_np(tree):
+    return {n: {k: _to_np(k, v) for k, v in d.items()}
+            for n, d in tree.items()}
+
+
 def params_from_numpy(params, state, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None
                       ) -> Tuple[Params, State]:
@@ -49,19 +60,70 @@ def params_from_numpy(params, state, device: DeviceLike = None,
     on ``device``.  ``dtype`` casts floating params (state stays as
     given, like the JAX package's float32 BN statistics)."""
     dev = resolve_device(device)
-    p = {n: {k: _from_np(k, v, dev, dtype) for k, v in d.items()}
-         for n, d in params.items()}
-    s = {n: {k: _from_np(k, v, dev, None) for k, v in d.items()}
-         for n, d in state.items()}
-    return p, s
+    return _tree_from_np(params, dev, dtype), _tree_from_np(state, dev)
 
 
 def params_to_numpy(params: Params, state: State
                     ) -> Tuple[Dict[str, Dict[str, np.ndarray]],
                                Dict[str, Dict[str, np.ndarray]]]:
     """The port's tensors -> JAX-layout numpy (bf16 widens to float32)."""
-    p = {n: {k: _to_np(k, v) for k, v in d.items()}
-         for n, d in params.items()}
-    s = {n: {k: _to_np(k, v) for k, v in d.items()}
-         for n, d in state.items()}
-    return p, s
+    return _tree_to_np(params), _tree_to_np(state)
+
+
+def _states(opt_state):
+    """The optax chain's per-transform states, in chain order: tuples are
+    walked, named tuples (``TraceState``, ``ScaleByAdamState``,
+    ``MaskedState``...) are leaves."""
+    if isinstance(opt_state, tuple) and not hasattr(opt_state, "_fields"):
+        return [s for part in opt_state for s in _states(part)]
+    return [opt_state]
+
+
+def opt_state_from_numpy(opt_state, device: DeviceLike = None) -> dict:
+    """An optax SGD (``add_decayed_weights``, ``trace``, lr schedule) or
+    AdamW (``scale_by_adam``, ``add_decayed_weights``, lr schedule) chain
+    state, with numpy (or array-like) leaves, -> the port's optimizer
+    state: ``{"count", "trace"}`` or ``{"count", "mu", "nu"}``.  Kernel
+    leaves go HWIO -> OIHW.  The chain's counts must agree."""
+    dev = resolve_device(device)
+    out: dict = {}
+    counts = []
+    for s in _states(opt_state):
+        fields = getattr(s, "_fields", ())
+        for f in ("trace", "mu", "nu"):
+            if f in fields:
+                out[f] = _tree_from_np(getattr(s, f), dev)
+        if "count" in fields:
+            counts.append(int(np.asarray(s.count)))
+    if not counts or len(set(counts)) != 1:
+        raise ValueError(f"optimizer state counts disagree: {counts}")
+    if not ("trace" in out) ^ ("mu" in out and "nu" in out):
+        raise ValueError("not an SGD (trace) or AdamW (mu, nu) state")
+    out["count"] = counts[0]
+    return out
+
+
+def opt_state_to_numpy(state: dict, like):
+    """The port's optimizer state -> the optax chain state shaped like
+    ``like`` (an optax state of the same chain): its ``trace`` / ``mu`` /
+    ``nu`` and every ``count`` are replaced, with numpy leaves in JAX
+    layout (int32 counts)."""
+    if isinstance(like, tuple) and not hasattr(like, "_fields"):
+        return tuple(opt_state_to_numpy(state, part) for part in like)
+    fields = getattr(like, "_fields", ())
+    new = {f: _tree_to_np(state[f]) for f in ("trace", "mu", "nu")
+           if f in fields}
+    if "count" in fields:
+        new["count"] = np.asarray(state["count"], np.int32)
+    return like._replace(**new) if new else like
+
+
+def eic_from_numpy(eic, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """JAX EIC scores ``{bn: (C,)}`` -> float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {n: torch.from_numpy(np.array(v, np.float32)).to(dev)
+            for n, v in eic.items()}
+
+
+def eic_to_numpy(eic: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {n: v.detach().cpu().numpy() for n, v in eic.items()}

@@ -6,9 +6,10 @@ layouts; on the GPU the deploy path hands it ``channels_last`` tensors so
 cuDNN runs NHWC underneath).  At the boundary it takes and returns NHWC
 like the JAX package, unless ``channels_first=True``.
 
-Only eval mode is ported: BN uses running statistics and dropout is the
-identity.  Train mode (batch moments, dropout, remat) arrives with the
-train step.
+Eval mode uses BN's running statistics and no dropout.  Train mode
+(``train=True``) uses the batch's moments, returns the new running
+statistics, draws dropout from an explicit ``torch.Generator`` and can
+recompute its activations in the backward (``remat_segments``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.graph.ir import Graph, Node
@@ -95,24 +97,60 @@ def _conv(x, node: Node, p):
                     groups=a["groups"])
 
 
-def _bn(x, node: Node, p, s):
-    """Eval-mode BN from running statistics, computed in float32."""
-    inv = torch.rsqrt(s["var"].float() + node.attrs["eps"]) * \
-        p["scale"].float()
+def _bn(x, node: Node, p, s, train: bool):
+    """BN in float32.  Returns (y, new running stats or None).
+
+    Train mode normalizes with the batch's biased variance over (N, H, W)
+    and moves the running statistics by ``(1 - momentum) * s + momentum *
+    batch``, with the unbiased variance: ``F.batch_norm``'s semantics.
+    It updates the buffers it is given in place, so it gets copies and
+    the caller's ``s`` stays as it was.  Like ``nn.BatchNorm2d``, it
+    raises on one value per channel (batch 1 through a global pool).
+    """
+    a = node.attrs
+    if train:
+        new_s = {"mean": s["mean"].float().clone(),
+                 "var": s["var"].float().clone()}
+        y = F.batch_norm(x.float(), new_s["mean"], new_s["var"],
+                         p["scale"].float(), p["bias"].float(),
+                         training=True, momentum=a["momentum"],
+                         eps=a["eps"])
+        return y.to(x.dtype), new_s
+    inv = torch.rsqrt(s["var"].float() + a["eps"]) * p["scale"].float()
     shift = p["bias"].float() - s["mean"].float() * inv
     y = x.float() * inv[:, None, None] + shift[:, None, None]
-    return y.to(x.dtype)
+    return y.to(x.dtype), None
+
+
+def _dropout(x, node: Node, seed: Optional[int]):
+    """Dropout from a mask drawn with ``seed`` on x's device; spatial
+    dropout draws one value per (n, c).  The same seed gives the same
+    mask, so a recomputed segment replays it."""
+    rate = node.attrs["rate"]
+    if seed is None or rate == 0.0:
+        return x
+    shape = x.shape[:2] + (1, 1) if node.attrs["spatial"] else x.shape
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
-               state: State, input_hw: Tuple[int, int]) -> torch.Tensor:
-    """Execute one non-input node (eval mode, NCHW)."""
+               state: State, input_hw: Tuple[int, int], train: bool,
+               drop_seeds: Dict[str, int], bn_updates: State
+               ) -> torch.Tensor:
+    """Execute one non-input node (NCHW); a train-mode BN puts its new
+    running statistics in ``bn_updates``."""
     op = node.op
     if op == "conv":
         return _conv(vals[node.inputs[0]], node, params[node.name])
     if op == "bn":
-        return _bn(vals[node.inputs[0]], node, params[node.name],
-                   state[node.name])
+        y, ns = _bn(vals[node.inputs[0]], node, params[node.name],
+                    state[node.name], train)
+        if ns is not None:
+            bn_updates[node.name] = ns
+        return y
     if op == "relu":
         return torch.relu(vals[node.inputs[0]])
     if op == "sigmoid":
@@ -149,52 +187,115 @@ def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
             target = (int(round(x.shape[-2] * a["scale"])),
                       int(round(x.shape[-1] * a["scale"])))
         return resize_bilinear_cf(x, target, a["align_corners"])
-    if op in ("dropout", "identity", "barrier"):
-        # eval dropout is the identity; a barrier only steers XLA fusion
+    if op == "dropout":
+        return _dropout(vals[node.inputs[0]], node,
+                        drop_seeds.get(node.name) if train else None)
+    if op in ("identity", "barrier"):
+        # a barrier only steers XLA fusion
         return vals[node.inputs[0]]
     raise NotImplementedError(f"op {op!r} ({node.name})")
 
 
 def graph_apply(graph: Graph, params: Params, state: State,
                 inputs: Dict[str, torch.Tensor], *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
                 input_hw: Optional[Tuple[int, int]] = None,
                 remat_segments: int = 0, channels_first: bool = False
                 ) -> Tuple[Dict[str, torch.Tensor], State]:
-    """Run the graph.  Returns ({output_name: tensor}, state).
+    """Run the graph.  Returns ({output_name: tensor}, new_state).
 
     Inputs and outputs are NHWC, or NCHW with ``channels_first=True``.
+    ``new_state`` holds the new BN running statistics of train mode
+    (other entries pass through); ``state`` itself is not changed.
     ``input_hw`` overrides the spatial size that ``resize(to_input=True)``
-    nodes target (graphs re-rooted at an interior node).  Activations are
-    freed as soon as their last consumer has run.
+    nodes target (graphs re-rooted at an interior node).
+
+    Dropout runs only with ``train=True`` and a ``generator`` (the JAX
+    package's ``rng=None`` rule): one seed per dropout node is drawn
+    from it, in graph order, before any node runs.
+
+    ``remat_segments`` > 1 runs that many contiguous segments under
+    ``torch.utils.checkpoint``: only the tensors live at the segment
+    boundaries are kept for the backward, the rest is recomputed.  The
+    recompute replays each dropout node's mask from its seed, so the
+    result and the gradients are those of the plain run.
     """
-    if train:
-        raise NotImplementedError("graph_apply(train=True) is not ported yet")
+    drop_seeds: Dict[str, int] = {}
+    drop_nodes = [n.name for n in graph.toposorted() if n.op == "dropout"]
+    if train and generator is not None and drop_nodes:
+        seeds = torch.randint(0, 2 ** 62, (len(drop_nodes),),
+                              generator=generator, device=generator.device)
+        drop_seeds = dict(zip(drop_nodes, seeds.tolist()))
+
+    vals = {k: v if channels_first else v.permute(0, 3, 1, 2)
+            for k, v in inputs.items()}
+    if input_hw is None:
+        input_hw = tuple(vals[graph.inputs[0]].shape[-2:])
+    nodes = [n for n in graph.toposorted() if n.op != "input"]
+
+    # liveness: last index at which each tensor is consumed; a tensor is
+    # freed once its last consumer has run
+    last_use = {name: -1 for name in graph.inputs}
+    for i, node in enumerate(nodes):
+        for parent in node.inputs:
+            last_use[parent] = i
+        last_use[node.name] = last_use.get(node.name, -1)
+    for out in graph.outputs:
+        last_use[out] = len(nodes)
+
+    def live_after(i: int):
+        """Tensors that must cross the boundary after nodes[i]."""
+        produced = set(graph.inputs) | {n.name for n in nodes[:i + 1]}
+        return sorted(t for t in produced if last_use[t] > i)
+
+    def run(carry, first, last, keep):
+        """nodes[first:last] on ``carry``; returns ({t: tensor for t in
+        keep}, that range's BN updates)."""
+        v = dict(carry)
+        bn_updates: State = {}
+        for i in range(first, last):
+            node = nodes[i]
+            v[node.name] = _exec_node(node, v, params, state, input_hw,
+                                      train, drop_seeds, bn_updates)
+            for parent in node.inputs:
+                if last_use[parent] == i:
+                    v.pop(parent, None)
+        return {t: v[t] for t in keep}, bn_updates
+
+    new_state: State = dict(state)
     if remat_segments > 1:
-        raise NotImplementedError("remat is not ported yet")
-
-    vals: Dict[str, torch.Tensor] = {}
-    refs: Dict[str, int] = {}
-    for node in graph.toposorted():
-        for parent in node.inputs:
-            refs[parent] = refs.get(parent, 0) + 1
-    for out in set(graph.outputs) | set(graph.inputs):
-        refs[out] = refs.get(out, 0) + 1
-
-    for node in graph.toposorted():
-        if node.op == "input":
-            y = inputs[node.name]
-            if not channels_first:
-                y = y.permute(0, 3, 1, 2)
-            if input_hw is None:
-                input_hw = (y.shape[-2], y.shape[-1])
-        else:
-            y = _exec_node(node, vals, params, state, input_hw)
-        vals[node.name] = y
-        for parent in node.inputs:
-            refs[parent] -= 1
-            if refs[parent] == 0:
-                del vals[parent]
-
+        bounds = _segment_bounds(len(nodes), remat_segments, live_after)
+        for first, last in zip(bounds, bounds[1:]):
+            # The recompute's BN updates go to fresh copies and are
+            # dropped; no op draws from the global RNG, so it need not be
+            # restored.
+            vals, bn_updates = checkpoint(
+                run, vals, first, last, live_after(last - 1),
+                use_reentrant=False, preserve_rng_state=False)
+            new_state.update(bn_updates)
+    else:
+        vals, bn_updates = run(vals, 0, len(nodes), graph.outputs)
+        new_state.update(bn_updates)
     outputs = {name: vals[name] if channels_first
                else vals[name].permute(0, 2, 3, 1) for name in graph.outputs}
-    return outputs, dict(state)
+    return outputs, new_state
+
+
+def _segment_bounds(n_nodes: int, n_segments: int, live_after):
+    """Node indices that cut ``n_nodes`` into ``n_segments`` remat
+    segments: near equal node counts, each cut nudged to the position with
+    the fewest live tensors in a window (stage boundaries of a ResNet
+    carry a single tensor; cutting mid-ASPP would carry five).  The JAX
+    package's search, copied."""
+    n_segments = min(n_segments, n_nodes)
+    cuts = []
+    window = max(n_nodes // (4 * n_segments), 1)
+    for k in range(1, n_segments):
+        target = k * n_nodes // n_segments
+        lo = max(target - window, (cuts[-1] + 1) if cuts else 0)
+        hi = min(target + window, n_nodes - 2)
+        if lo > hi:
+            continue
+        best = min(range(lo, hi + 1), key=lambda i: len(live_after(i)))
+        cuts.append(best)
+    return [0] + [c + 1 for c in cuts] + [n_nodes]

@@ -47,9 +47,12 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool,
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device) -> torch.Tensor:
     """:func:`_interp_matrix` as a float32 tensor on ``device`` (cached;
-    callers must not write to it)."""
-    return torch.from_numpy(
-        _interp_matrix(in_size, out_size, align_corners)).to(device)
+    callers must not write to it).  Made outside inference mode, so a
+    matrix first cached by the deploy path can still be saved by
+    autograd in a train step."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            _interp_matrix(in_size, out_size, align_corners)).to(device)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False

@@ -58,7 +58,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dcfp_tpu)(?:\.|\s|$)",
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "pair_times.py", "k3_parts.py", "k46_parts.py"]))
+    + ["chip_smoke.py", "pair_times.py", "k3_parts.py", "k46_parts.py",
+       "train_probe.py"]))
 def test_source_has_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not _IMPORT.findall(src), f"{path} imports {_IMPORT.findall(src)}"
@@ -69,8 +70,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
     explicit ``device='cpu'`` runs on the CPU."""
     from dcfp_tpu_torch.bridge import params_from_numpy
     from dcfp_tpu_torch.engine.deploy import make_inference_fn
+    from dcfp_tpu_torch.engine.optim import build_optimizer
+    from dcfp_tpu_torch.engine.trainer import (TrainLoop,
+                                               create_train_state,
+                                               make_train_step)
     from dcfp_tpu_torch.graph.apply import init_graph
     from dcfp_tpu_torch.graph.ir import GraphBuilder
+    from dcfp_tpu_torch.losses.criteria import build_criterions
+    from dcfp_tpu_torch.models.heads import SegModel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     b = GraphBuilder("g")
@@ -88,3 +95,21 @@ def test_entry_points_default_to_cuda(monkeypatch):
     fn, p = make_inference_fn(g, params, state, device="cpu",
                               dtype=torch.float32, output="logits")
     assert fn(p, torch.zeros(1, 5, 5, 3)).shape == (1, 5, 5, 4)
+
+    model = SegModel(g, "g", "none", 4, False, False, {}, {})
+    opt = build_optimizer(optim="sgd", num_steps=10)
+    crit = build_criterions("ce")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(model, params, state, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model, crit, opt)
+    state0 = create_train_state(model, params, state, opt, device="cpu")
+    step = make_train_step(model, crit, opt, device="cpu")
+    batch = {"img": torch.zeros(2, 5, 5, 3),
+             "label": torch.zeros(2, 5, 5, dtype=torch.long)}
+    state1, metrics = step(state0, batch)
+    assert state1.step == 1 and metrics["loss"].device.type == "cpu"
+    loop = TrainLoop(model, crit, opt, num_steps=1, lr_schedule=opt.schedule)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.run(state0, iter([batch]))
+    assert loop.run(state0, iter([batch]), device="cpu").step == 1

@@ -199,14 +199,6 @@ def test_init_graph_is_seeded():
     assert all(torch.equal(a[n][k], b[n][k]) for n in a for k in a[n])
 
 
-def test_train_mode_not_ported():
-    g = _conv_graph(1, 1, 1)(TBuilder)
-    p, s = tapply.init_graph(g, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapply.graph_apply(g, p, s, {"image": torch.zeros(1, 4, 4, 8)},
-                           train=True)
-
-
 R50_CFG = dict(backbone="resnet50",
                backbone_para={"os": 8, "mg_unit": [1, 2, 4], "inplanes": 128},
                num_classes=19, align_corner=True, deepsup=False)
