@@ -51,9 +51,22 @@ exits non-zero without them.  Phases, each of which raises on failure:
    ``TrainLoop`` for 6 steps, with PyTorch's default TF32 setting: ms a
    step, img/s, peak memory, losses, grad norms, EIC; and one step with
    ``remat_segments=4`` against one without (batch 2, 129x129), equal;
-8. one JSON line with every ported kernel: launches on its path, its
+8. eval (``phase_eval``): the flagship DeepLabV3-R50 (random weights,
+   seed 0) over four seeded 1024x2048 images fed in memory and taken in
+   turn, through ``engine/evaluator.py``: (a) the deploy eval (bf16,
+   whole, ss, padded to 1025x2049) in the protocol loop, the pipelined
+   loop and the pipelined loop on compact uint8 items, 261 images each
+   (256 timed), with identical confusion matrices, K1 launched once an
+   image a loop and no synchronizing call in a pipelined loop but its
+   flushes; their pinned host memory, and a host (cProfile) and device
+   profile of each pipelined loop; (b) multi-scale 0.5-1.75 + flip,
+   f32 (4 timed images); (c) sliding 769x769 tiles, f32 (16 timed);
+   (d) boundary IoU (46 erosions);
+   (e) each mode again at 125x250, f32, TF32 off, card against CPU,
+   labels differing only at near-ties; one ``{"eval": ...}`` JSON line;
+9. one JSON line with every ported kernel: launches on its path, its
    check, its time beside its bound, plain and library times;
-9. last line: ``{"ok": true, "device": {...}}``.
+10. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -65,6 +78,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -72,9 +86,11 @@ import torch.nn.functional as F
 
 from dcfp_tpu_torch.bridge import (eic_to_numpy, params_from_numpy,
                                    params_to_numpy)
+from dcfp_tpu_torch.data.base import normalize_f32
 from dcfp_tpu_torch.engine.deploy import (benchmark, fold_batchnorm,
                                           make_inference_fn,
                                           make_split_inference_fn)
+from dcfp_tpu_torch.engine.evaluator import Predictor, evaluate, pad_inf
 from dcfp_tpu_torch.engine.optim import build_optimizer
 from dcfp_tpu_torch.engine.trainer import (TrainLoop, create_train_state,
                                            make_train_step)
@@ -86,6 +102,8 @@ from dcfp_tpu_torch.ops.resize import resize_bilinear
 from dcfp_tpu_torch.ops.stem import extract_stem_phases
 from dcfp_tpu_torch.prune.eic import prunable_bn_names
 from dcfp_tpu_torch.prune.search import prune_to_flops
+from dcfp_tpu_torch.utils import edge, profiling
+from dcfp_tpu_torch.utils.edge import mask_to_boundary_device
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the
 # tensor cores (dense, at the full 700 W power limit)
@@ -1278,7 +1296,8 @@ def _kernel_class(name):
 def profile_requests(request, n=5, tag=""):
     """Where one request's device time goes: torch.profiler over ``n``
     requests after a warm one; kernel time by class, the top kernels, and
-    the device's busy share of the window's wall time."""
+    the device's busy share of the window's wall time (logged and
+    returned)."""
     from torch.profiler import ProfilerActivity, profile
     request()
     torch.cuda.synchronize()
@@ -1303,7 +1322,7 @@ def profile_requests(request, n=5, tag=""):
                                                      0.0) + us
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
     top_ops = sorted(ops_us.items(), key=lambda kv: -kv[1])[:10]
-    log(f"[profile{tag}] " + json.dumps({
+    summary = {
         "requests": n, "wall_ms_per_request": wall_us / n / 1e3,
         "device_busy_ms_per_request": busy_us / n / 1e3,
         "device_busy_share": busy_us / wall_us if wall_us else None,
@@ -1312,7 +1331,9 @@ def profile_requests(request, n=5, tag=""):
         "top_kernels_ms_per_request": [[k[:80], v / n / 1e3]
                                        for k, v in top],
         "top_ops_device_ms_per_request": [[k, v / n / 1e3]
-                                          for k, v in top_ops]}))
+                                          for k, v in top_ops]}
+    log(f"[profile{tag}] " + json.dumps(summary))
+    return summary
 
 
 def phase_serve():
@@ -1795,6 +1816,436 @@ def phase_train():
     return {"vs_cpu": vs_cpu, "recipe": recipe, "remat": remat}
 
 
+# ---------------------------------------------------------------------------
+# 8. eval
+# ---------------------------------------------------------------------------
+
+# the recipe's model (__graft_entry__._flagship, no deepsup) and its eval
+# modes: scripts/cs/deploy.sh:28-34 (whole, ss, bf16, 1025x2049) and
+# scripts/cs/finetune.sh:46-63 (whole, ms 0.5-1.75 + flip, f32)
+EVAL_CFG = dict(FLAGSHIP_CFG, deepsup=False)
+EVAL_HW = (1024, 2048)
+EVAL_MS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
+EVAL_TILE = (769, 769)
+# card against CPU: 125x250 pads to 129x257 (pad_inf)
+SMALL_HW = (125, 250)
+SMALL_MODES = {"ss": dict(whole=True),
+               "ms_flip": dict(whole=True, scales=(0.75, 1.0, 1.25),
+                               flip=True),
+               "sliding": dict(whole=False, tile_size=(97, 97)),
+               "boundary": dict(whole=True, iou_type="boundary")}
+
+
+def _eval_items(n, hw, seed):
+    """``n`` seeded batches of one, as classic items (the image
+    host-normalized to f32, int64 labels) and as compact items (the same
+    pixels as raw uint8, uint8 labels); ~5% of the labels are 255."""
+    rng = np.random.default_rng(seed)
+    mean, std = (np.asarray(v, np.float32) for v in NORMALIZE)
+    classic, compact = [], []
+    for i in range(n):
+        raw = rng.integers(0, 256, (1, *hw, 3), dtype=np.uint8)
+        label = rng.integers(0, 19, (1, *hw), dtype=np.uint8)
+        label[rng.random(label.shape) < 0.05] = 255
+        meta = [{"name": f"eval{i}"}]
+        classic.append({"img": normalize_f32(raw.astype(np.float32), mean,
+                                             std),
+                        "label": label.astype(np.int64), "img_meta": meta})
+        compact.append({"img": raw, "label": label, "img_meta": meta})
+    return classic, compact
+
+
+def _valid_pixels(items):
+    return int(sum((it["label"] != 255).sum() for it in items))
+
+
+class _Cycle:
+    """``n`` batches taken in turn from ``items``: a val pass of ``n``
+    images fed from a few held in memory."""
+
+    def __init__(self, items, n):
+        self.items, self.n = items, n
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return (self.items[i % len(self.items)] for i in range(self.n))
+
+
+# the deploy eval's loops: 5 untimed images (evaluate's default warmup),
+# then two flush periods of the pipelined loop (evaluate_pipelined's
+# flush_every is 128)
+EVAL_WARMUP, EVAL_TIMED, EVAL_FLUSH = 5, 256, 128
+
+
+def _rss_bytes():
+    """This process's resident bytes (Linux), or None."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key == "VmRSS":
+                return int(val.split()[0]) * 1024
+    return None
+
+
+def host_profile(run, images, names):
+    """cProfile of ``run()`` (a loop over ``images`` images): host ms an
+    image spent inside each function of ``names`` (cumulative;
+    ``"file.py:func"`` for a Python function, a bare name for a method
+    written in C), the rest of the wall time (``names`` must not nest),
+    and the top functions by own time.  Under Python 3.12 cProfile keeps
+    no record of a frame that enters ``torch.inference_mode``, nor of its
+    callers, so ``names`` holds none of those."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    run()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    cum = {n: 0.0 for n in names}
+    for (path, _, func), (_, _, _, ct, _) in stats.items():
+        where = f"{os.path.basename(path)}:{func}"
+        for n in names:
+            if n == where or func.startswith(f"<method '{n}' "):
+                cum[n] += ct
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    return {"images": images, "wall_ms_per_image": wall * 1e3 / images,
+            "cum_ms_per_image": {n: v * 1e3 / images
+                                 for n, v in cum.items()},
+            "rest_ms_per_image": (wall - sum(cum.values())) * 1e3 / images,
+            "top_own_ms_per_image": [
+                [f"{os.path.basename(k[0])}:{k[1]}:{k[2]}"[:90],
+                 v[2] * 1e3 / images] for k, v in top]}
+
+
+# the pipelined loop's host work an image besides the forward, as
+# cProfile names it: padding, the pinned copy and its H2D issue, the
+# label cast, compact items' normalize, the confusion update, the flushes
+# (the rest is the forward's issue and the loop itself)
+PIPELINE_HOST_FUNCS = (
+    "evaluator.py:_pad_hw", "evaluator.py:_to_device_async", "astype",
+    "evaluator.py:prep_raw", "evaluator.py:confusion_update_device",
+    "evaluator.py:flush")
+
+
+def pipeline_profile(pred, items, kw):
+    """Where a pipelined loop's time goes, over 64 images after its
+    warmup: the host side by cProfile, then the device's busy share of
+    the loop's wall time by torch.profiler (each run alone)."""
+    n = EVAL_WARMUP + 64
+    host = host_profile(
+        lambda: evaluate(pred, _Cycle(items, n), pipeline=True, **kw), n,
+        PIPELINE_HOST_FUNCS)
+    dev = profile_requests(
+        lambda: evaluate(pred, _Cycle(items, 16), pipeline=True, **kw), n=1,
+        tag=" pipelined loop, 16 images")
+    return {"host": host,
+            "device_busy_share": dev["device_busy_share"],
+            "device_busy_ms_per_image": dev["device_busy_ms_per_request"] / 16,
+            "profiled_wall_ms_per_image": dev["wall_ms_per_request"] / 16}
+
+
+@contextlib.contextmanager
+def sync_calls(record):
+    """Append to ``record`` the place of every synchronizing CUDA call
+    made in the block (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (setting the mode warns too, that the mode is a prototype)
+    record.extend(f"{os.path.basename(w.filename)}:{w.lineno}"
+                  for w in caught
+                  if "called a synchronizing CUDA operation"
+                  in str(w.message))
+
+
+def eval_deploy(graph, params, state, classic, compact):
+    """(a) the deploy eval: bf16, whole image, single scale, padded to
+    1025x2049; the protocol loop, the pipelined loop and the pipelined
+    loop on compact items, each over ``EVAL_WARMUP + EVAL_TIMED`` images
+    taken in turn from the four, with the launch counts set to 0 before
+    and read after.  The three confusion matrices must be identical, K1
+    launched once an image a loop, and each pipelined loop must make no
+    synchronizing call but its flushes (at its warmup, every
+    ``EVAL_FLUSH`` images and at its end).  Each pipelined loop's pinned
+    host memory and resident set are read around it; then both pipelined
+    loops are profiled, host and device."""
+    pred = Predictor(graph, params, state, dtype=torch.bfloat16,
+                     align_corner=True, normalize=NORMALIZE)
+    kw = dict(num_classes=19, whole=True, align_corner=True,
+              fps_warmup=EVAL_WARMUP)
+    n = EVAL_WARMUP + EVAL_TIMED
+    flushes = 2 + EVAL_TIMED // EVAL_FLUSH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    loops = {"protocol": evaluate(pred, _Cycle(classic, n), **kw)}
+    walls = {"protocol": time.perf_counter() - t0}
+    syncs, host_mem = {}, {}
+    for name, items in (("pipelined", classic),
+                        ("compact_pipelined", compact)):
+        syncs[name] = []
+        if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+            torch.cuda.reset_peak_host_memory_stats()
+        rss0 = _rss_bytes()
+        t0 = time.perf_counter()
+        with sync_calls(syncs[name]):
+            loops[name] = evaluate(pred, _Cycle(items, n), pipeline=True,
+                                   **kw)
+        walls[name] = time.perf_counter() - t0
+        pinned = (torch.cuda.host_memory_stats()
+                  if hasattr(torch.cuda, "host_memory_stats") else {})
+        rss1 = _rss_bytes()
+        host_mem[name] = {
+            "pinned_peak_bytes": pinned.get("allocated_bytes.peak"),
+            "pinned_active_peak_bytes": pinned.get("active_bytes.peak"),
+            "pinned_blocks_made": pinned.get("num_host_alloc"),
+            "rss_before_bytes": rss0, "rss_after_bytes": rss1}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = n * len(loops)
+    if launches["resize_argmax"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"deploy eval: launches {launches}, expected "
+                             f"K1 {want} times and nothing else")
+    cm = loops["protocol"]["confusion"]
+    if cm.sum() != _valid_pixels(list(_Cycle(classic, n))):
+        raise AssertionError("deploy eval: confusion does not count every "
+                             "labelled pixel")
+    for name in syncs:
+        if not np.array_equal(loops[name]["confusion"], cm):
+            diff = np.abs(loops[name]["confusion"] - cm).sum()
+            raise AssertionError(f"deploy eval: the {name} loop's confusion "
+                                 f"differs from the protocol loop's by {diff}")
+        if len(syncs[name]) > flushes:
+            raise AssertionError(f"deploy eval: the {name} loop made "
+                                 f"{len(syncs[name])} synchronizing calls "
+                                 f"({flushes} flushes expected): "
+                                 f"{syncs[name][:8]}")
+    profiles = {name: pipeline_profile(pred, items, kw)
+                for name, items in (("pipelined", classic),
+                                    ("compact_pipelined", compact))}
+    image = np.pad(classic[0]["img"], ((0, 0), (0, 1), (0, 1), (0, 0)))
+    dev_img = pred.device_put(image)
+    prof = profile_requests(lambda: pred.predict_whole_labels(dev_img),
+                            tag=" eval")
+    labels0 = pred.predict_whole_labels(dev_img)[:, :EVAL_HW[0],
+                                                 :EVAL_HW[1]].cpu().numpy()
+    summary = {
+        "images_held": len(classic), "images_a_loop": n,
+        "timed_a_loop": EVAL_TIMED, "dtype": "bfloat16",
+        "input_hw": list(dev_img.shape[1:3]),
+        "fps": {k: v["fps"] for k, v in loops.items()},
+        "loop_img_per_s": {k: n / v for k, v in walls.items()},
+        "meanIU": loops["protocol"]["meanIU"],
+        "confusion_identical": True,
+        "k1_launches": launches["resize_argmax"],
+        "k1_launches_expected": want,
+        "sync_calls": syncs,
+        "flushes_a_pipelined_loop": flushes,
+        "host_memory": host_mem,
+        "pipelined_profile": profiles,
+        "peak_bytes": peak,
+        "profile_wall_ms_per_image": prof["wall_ms_per_request"],
+        "profile_device_busy_share": prof["device_busy_share"],
+        "k1_ms_per_image": prof["ms_per_request_by_class"].get(
+            "K1 resize_argmax"),
+        "classes_in_image0": int((np.bincount(labels0.ravel(),
+                                              minlength=19) > 0).sum())}
+    log("[eval] deploy: " + json.dumps(summary))
+    return summary, labels0
+
+
+def eval_boundary(graph, params, state, classic, labels0):
+    """(d) boundary IoU: the device erosion on image 0's deploy labels
+    stacked with its labels (dilation_ratio 0.02: 46 erosions at
+    1024x2048), timed from host arrays and on the device alone; then the
+    protocol loop with ``iou_type="boundary"`` on two images."""
+    stack = np.concatenate([labels0.astype(np.int64), classic[0]["label"]])
+    dilation = max(int(round(0.02 * np.hypot(*EVAL_HW))), 1)
+    host = profiling.timeit(lambda: mask_to_boundary_device(stack, 19),
+                            warmup=1, iters=3)
+    dev_stack = torch.from_numpy(stack.astype(np.int32)).to("cuda")
+    device = profiling.timeit(lambda: edge._boundary(dev_stack, dilation, 19,
+                                                     255), warmup=1, iters=3)
+    bnd = mask_to_boundary_device(stack, 19)
+    kept = bnd != 255
+    if bnd.shape != stack.shape or not bool(
+            (bnd[kept] == stack[kept]).all()):
+        raise AssertionError("boundary: a kept pixel changed its class")
+    pred = Predictor(graph, params, state, dtype=torch.bfloat16,
+                     align_corner=True)
+    res = evaluate(pred, classic[:2], num_classes=19, whole=True,
+                   align_corner=True, fps_warmup=1, iou_type="boundary")
+    summary = {"dilation": dilation, "stack": list(stack.shape),
+               "ms": host["ms"], "device_ms": device["ms"],
+               "boundary_share": float(kept.mean()),
+               "eval_meanIU": res["meanIU"],
+               "eval_counted_pixels": float(res["confusion"].sum())}
+    log("[eval] boundary: " + json.dumps(summary))
+    return summary
+
+
+# (b) and (c): images timed after one untimed, each mode's count chosen
+# to keep its loop near 3 s on the card
+EVAL_F32_TIMED = {"multiscale_flip": 4, "sliding": 16}
+
+
+def eval_f32_modes(graph, params, state, classic):
+    """(b) the finetune eval, f32 whole image, ms 0.5-1.75 + flip, and (c)
+    sliding 769x769 tiles (8 in one forward at 1024x2048), each in the
+    protocol loop over one untimed image and ``EVAL_F32_TIMED`` timed
+    ones taken in turn from the four: ms an image (the loop's bracket,
+    and its whole wall time), and the peak memory."""
+    pred = Predictor(graph, params, state, dtype=torch.float32,
+                     align_corner=True)
+    n_tiles = len(Predictor._tile_boxes(*EVAL_HW, *EVAL_TILE, 1 / 3))
+    out = {}
+    for name, kw in (("multiscale_flip", dict(whole=True, scales=EVAL_MS,
+                                              flip=True)),
+                     ("sliding", dict(whole=False, tile_size=EVAL_TILE))):
+        items = list(_Cycle(classic, 1 + EVAL_F32_TIMED[name]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = evaluate(pred, items, num_classes=19, align_corner=True,
+                       fps_warmup=1, **kw)
+        wall = time.perf_counter() - t0
+        if res["confusion"].sum() != _valid_pixels(items):
+            raise AssertionError(f"{name}: confusion does not count every "
+                                 "labelled pixel")
+        out[name] = {"timed_images": EVAL_F32_TIMED[name],
+                     "ms_per_image": 1000.0 / res["fps"],
+                     "loop_ms_per_image": wall * 1e3 / len(items),
+                     "meanIU": res["meanIU"],
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["sliding"]["tiles"] = n_tiles
+    out["multiscale_flip"]["scales"] = list(EVAL_MS)
+    log("[eval] f32 modes: " + json.dumps(out))
+    return out
+
+
+def _small_labels(pred, image, kw):
+    """One small image through a mode's prediction path, as ``evaluate``
+    runs it: (labels, the raw graph's logits it decides on)."""
+    h, w = image.shape[1:3]
+    if kw["whole"]:
+        ph, pw = pad_inf((h, w))
+        image = np.pad(image, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
+    if kw["whole"] and "scales" not in kw:
+        labels = pred.predict_whole_labels(image)[:, :h, :w]
+        logits = pred.predict_whole(image)[:, :h, :w]
+    else:
+        logits = pred.predict_multiscale(
+            image, kw.get("tile_size", EVAL_TILE), kw.get("scales", (1.0,)),
+            19, kw.get("flip", False), True, kw["whole"],
+            return_probs=True)[:, :h, :w]
+        labels = torch.argmax(logits, -1)
+    return labels.cpu().numpy().astype(np.uint8), logits.cpu().numpy()
+
+
+def eval_card_vs_cpu(graph, params, state):
+    """(e) every mode once more at 125x250 (padded to 129x257), f32, TF32
+    off, on the CPU and on the card: labels may differ only at near-ties
+    (top-2 margin of the CPU's logits <= 1e-4 x max|logit|), and the
+    confusion by at most 2 counts a differing pixel (boundary mode: a
+    pixel within the erosion's reach of one).  The card's pipelined ss
+    loop equals its protocol loop, and the device erosion of a stack is
+    identical on both."""
+    classic, _ = _eval_items(2, SMALL_HW, seed=1)
+    preds = {dev: Predictor(graph, params, state, dtype=torch.float32,
+                            align_corner=True, device=dev)
+             for dev in ("cpu", "cuda")}
+    reach = max(int(round(0.02 * np.hypot(*SMALL_HW))), 1)
+    out = {}
+    for mode, mkw in SMALL_MODES.items():
+        kw = dict(num_classes=19, align_corner=True, fps_warmup=0, **mkw)
+        cms = {dev: evaluate(p, classic, **kw)["confusion"]
+               for dev, p in preds.items()}
+        n_diff = n_tie = n_reach = 0
+        for item in classic:
+            (lc, ref), (lg, _) = (_small_labels(preds[d], item["img"], mkw)
+                                  for d in ("cpu", "cuda"))
+            top2 = np.sort(ref, -1)[..., -2:]
+            tie = (top2[..., 1] - top2[..., 0]) <= 1e-4 * np.abs(ref).max()
+            diff = lc != lg
+            if (diff & ~tie).any():
+                raise AssertionError(f"card vs CPU {mode}: "
+                                     f"{int((diff & ~tie).sum())} labels "
+                                     "differ away from near-ties")
+            n_diff += int(diff.sum())
+            n_tie += int(tie.sum())
+            n_reach += int(F.max_pool2d(
+                torch.from_numpy(diff).float(), 2 * reach + 1, stride=1,
+                padding=reach).sum())
+        moved = float(np.abs(cms["cpu"] - cms["cuda"]).sum())
+        allowed = 2 * (n_reach if mode == "boundary" else n_diff)
+        if moved > allowed:
+            raise AssertionError(f"card vs CPU {mode}: confusion moved by "
+                                 f"{moved} (allowed {allowed})")
+        out[mode] = {"differing_pixels": n_diff, "near_tie_pixels": n_tie,
+                     "confusion_moved": moved,
+                     "counted_pixels": float(cms["cuda"].sum())}
+    kw = dict(num_classes=19, whole=True, align_corner=True, fps_warmup=0)
+    pipe = evaluate(preds["cuda"], classic, pipeline=True, **kw)
+    if not np.array_equal(pipe["confusion"],
+                          evaluate(preds["cuda"], classic, **kw)["confusion"]):
+        raise AssertionError("card: pipelined ss differs from protocol")
+    stack = np.concatenate([it["label"] for it in classic])
+    if not np.array_equal(mask_to_boundary_device(stack, 19),
+                          mask_to_boundary_device(stack, 19, device="cpu")):
+        raise AssertionError("boundary erosion: card differs from CPU")
+    out["pixels_per_mode"] = int(np.prod(SMALL_HW)) * len(classic)
+    log("[eval] card vs CPU: " + json.dumps(out))
+    return out
+
+
+def phase_eval():
+    """The port's eval on the recipe's model (DeepLabV3-R50, random
+    weights from seed 0, classifier bias zeroed as in serving) over four
+    seeded 1024x2048 images fed in memory: (a) deploy eval, (b) finetune
+    multi-scale + flip, (c) sliding, (d) boundary IoU, (e) card against
+    CPU.  Prints one ``{"eval": ...}`` line."""
+    graph = build_model("deeplabv3", **EVAL_CFG).graph
+    params, state = init_graph(graph, torch.Generator().manual_seed(0),
+                               device="cpu")
+    params["last_conv.6"]["bias"].zero_()
+    classic, compact = _eval_items(4, EVAL_HW, seed=0)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    try:
+        # the deploy path autotuned, as served
+        cudnn.benchmark = True
+        deploy, labels0 = eval_deploy(graph, params, state, classic, compact)
+        boundary = eval_boundary(graph, params, state, classic, labels0)
+        torch.cuda.empty_cache()
+        # f32 with PyTorch's defaults: cuDNN TF32 on, no autotuning (it
+        # would search again at every scale's shapes)
+        cudnn.benchmark, cudnn.allow_tf32 = False, True
+        f32 = eval_f32_modes(graph, params, state, classic)
+        torch.cuda.empty_cache()
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        vs_cpu = eval_card_vs_cpu(graph, params, state)
+    finally:
+        cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = saved
+    torch.cuda.empty_cache()
+    result = {"model": "deeplabv3-resnet50 os8 mg[1,2,4] stem128 19 classes",
+              "image_hw": list(EVAL_HW), "deploy": deploy,
+              "boundary": boundary, **f32, "card_vs_cpu": vs_cpu}
+    print(json.dumps({"eval": result}), flush=True)
+    return result
+
+
 def main():
     phase_device()
     phase_build()
@@ -1813,6 +2264,7 @@ def main():
     k4_launches, k4_check, k4_time = phase_k4(k4_case)
     del k4_case
     phase_train()
+    eval_result = phase_eval()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()
@@ -1829,6 +2281,7 @@ def main():
                     "serving_mismatched_pixels": serve_check[0],
                     "launches_on_phases_path":
                         phases["launches"]["resize_argmax"]},
+             launches_on_eval_path=eval_result["deploy"]["k1_launches"],
              **k1_time),
         dict(name="stem_conv3x3_s2", route="cuda",
              source="dcfp_tpu_torch/csrc/stem_conv.cu",
