@@ -64,9 +64,25 @@ exits non-zero without them.  Phases, each of which raises on failure:
    (d) boundary IoU (46 erosions);
    (e) each mode again at 125x250, f32, TF32 off, card against CPU,
    labels differing only at near-ties; one ``{"eval": ...}`` JSON line;
-9. one JSON line with every ported kernel: launches on its path, its
-   check, its time beside its bound, plain and library times;
-10. last line: ``{"ok": true, "device": {...}}``.
+9. the recipe through files (``phase_data``), the flagship R50 at full
+   width, random weights: a 1024x2048 Cityscapes fixture on disk (16
+   train, 16 val images) and its label index; pretrain.sh's item path
+   (CE + EIC, classic f32 items through the native augment tail, batch
+   8 x 769^2 from decode processes, 6 ``TrainLoop`` steps, the native
+   library's call count held > 0), its snapshot and EIC; prune.sh's
+   search to 0.4 of the FLOPs, ``pruned`` and ``channel_cfg`` written
+   and read back bit-equal, the pruned graph rebuilt; finetune.sh's item
+   path (GSRL, balance 2, resample, compact batches, 6 steps, snapshots
+   at 3 and 6), the step-3 snapshot reloaded bit-equal and one step from
+   it giving the run's loss (rtol 1e-5); the deploy eval (bf16, K1) of
+   the step-6 snapshot over a val manifest of 64 lines, pipelined, on
+   f32 and compact items from the prefetch thread and from decode
+   processes, each confusion identical to the protocol loop's over the
+   images decoded once into memory, K1 once an image; the loaders' rates
+   alone; one ``{"data": ...}`` JSON line;
+10. one JSON line with every ported kernel: launches on its path, its
+    check, its time beside its bound, plain and library times;
+11. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -84,9 +100,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dcfp_tpu_torch import native
 from dcfp_tpu_torch.bridge import (eic_to_numpy, params_from_numpy,
                                    params_to_numpy)
 from dcfp_tpu_torch.data.base import normalize_f32
+from dcfp_tpu_torch.data.datasets import build_dataset
+from dcfp_tpu_torch.data.label_index import build_label_index
+from dcfp_tpu_torch.data.loader import (EvalLoader, TrainLoader, _fork_ctx,
+                                        collate)
+from dcfp_tpu_torch.data.synthetic import make_cityscapes_fixture
 from dcfp_tpu_torch.engine.deploy import (benchmark, fold_batchnorm,
                                           make_inference_fn,
                                           make_split_inference_fn)
@@ -101,7 +123,9 @@ from dcfp_tpu_torch.ops import aspp, bottleneck, int8, kernels
 from dcfp_tpu_torch.ops.resize import resize_bilinear
 from dcfp_tpu_torch.ops.stem import extract_stem_phases
 from dcfp_tpu_torch.prune.eic import prunable_bn_names
+from dcfp_tpu_torch.prune.pruner import apply_channel_cfg, slice_params_to_cfg
 from dcfp_tpu_torch.prune.search import prune_to_flops
+from dcfp_tpu_torch.utils import checkpoint as ckpt
 from dcfp_tpu_torch.utils import edge, profiling
 from dcfp_tpu_torch.utils.edge import mask_to_boundary_device
 
@@ -2246,6 +2270,552 @@ def phase_eval():
     return result
 
 
+# ---------------------------------------------------------------------------
+# 9. the recipe through files
+# ---------------------------------------------------------------------------
+
+# scripts/cs/{pretrain,prune,finetune}.sh on the flagship R50 at full
+# width, every stage handing its result to the next through files: 16
+# train and 16 val frames at 1024x2048 on disk, 6 steps a training stage
+DATA_HW = (1024, 2048)
+DATA_IMAGES = 16
+DATA_VAL_REPEAT = 4  # the val manifest lists each image 4 times: 5 + 59
+DATA_BATCH, DATA_CROP, DATA_STEPS = 8, (769, 769), 6
+DATA_SEED = 42  # the scripts' --random-seed
+DATA_STALL_S = "120"  # a wedged decode pool fails the phase, not the call
+DATA_ALONE_EVAL = 32  # val lines each eval loader is timed alone over
+DATA_PROFILED_ITEMS = 4  # train items profiled in this process
+
+
+def _dir_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def data_fixture(root, hw=DATA_HW, n=DATA_IMAGES):
+    """The Cityscapes fixture (``make_cityscapes_fixture``, train seed 0,
+    val seed 1), the val manifest that lists each image
+    ``DATA_VAL_REPEAT`` times, and the label index of the train split.
+    Its images are uniform noise, which PNG cannot compress: larger files
+    and slower decodes than real frames."""
+    import cv2
+    t0 = time.perf_counter()
+    train = make_cityscapes_fixture(root, n_images=n, hw=hw, seed=0,
+                                    split="train")
+    val = make_cityscapes_fixture(root, n_images=n, hw=hw, seed=1,
+                                  split="val")
+    write_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(root)
+    with open(val) as f:
+        lines = [ln for ln in f if ln.strip()]
+    val_rep = os.path.join(root, "val_repeated.lst")
+    with open(val_rep, "w") as f:
+        f.write("".join(lines * DATA_VAL_REPEAT))
+    index = os.path.join(root, "label_index_CS.pkl")
+    t0 = time.perf_counter()
+    build_label_index(build_dataset("CS", root, train, split="train"), index)
+    index_s = time.perf_counter() - t0
+    pairs = [ln.split() for ln in lines]
+    t0 = time.perf_counter()
+    for img, _ in pairs:
+        cv2.imread(os.path.join(root, img), cv2.IMREAD_COLOR)
+    img_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    t0 = time.perf_counter()
+    for _, lab in pairs:
+        cv2.imread(os.path.join(root, lab), cv2.IMREAD_GRAYSCALE)
+    lab_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    summary = {"images": [n, n], "hw": list(hw), "write_s": write_s,
+               "bytes": nbytes,
+               "image_png_bytes_mean": float(np.mean([os.path.getsize(
+                   os.path.join(root, img)) for img, _ in pairs])),
+               "label_index_s": index_s,
+               "decode_ms_per_image_png": img_ms,
+               "decode_ms_per_label_png": lab_ms,
+               "note": "uniform-noise images: PNG cannot compress them, so "
+                       "files and decodes are larger than real frames'"}
+    log("[data] fixture: " + json.dumps(summary))
+    return {"root": root, "train": train, "val": val_rep,
+            "label_index": index}, summary
+
+
+class _Tap:
+    """``next`` of ``it``, keeping the seconds each call waited (and the
+    batches, with ``keep``)."""
+
+    def __init__(self, it, keep=False):
+        self.it, self.keep = it, keep
+        self.waits, self.kept = [], []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.it)
+        self.waits.append(time.perf_counter() - t0)
+        if self.keep:
+            self.kept.append(batch)
+        return batch
+
+
+def data_loop(model, ds, crit, opt, params, state, snap_dir, *, workers,
+              prune_type, save_every, generator=None, keep=False,
+              batch=DATA_BATCH, steps=DATA_STEPS, device="cuda"):
+    """``TrainLoop`` over ``steps`` batches of a ``TrainLoader`` on ``ds``
+    (``workers`` decode processes) whose snapshot hook writes
+    ``CS_scenes_<step>.msgpack`` every ``save_every`` steps and at the
+    end, as the train CLI does, keeping the state it was given and the
+    dropout generator's state.  ms a step from the metrics lines (one a
+    step), less the hook's writes, and the loader's wait a step."""
+    saved = {}
+
+    def hook(st, step):
+        path = os.path.join(snap_dir, f"CS_scenes_{step}.msgpack")
+        t0 = time.perf_counter()
+        ckpt.save_train_state(path, st, opt)
+        saved[step] = {"path": path, "state": st, "bytes":
+                       os.path.getsize(path),
+                       "seconds": time.perf_counter() - t0,
+                       "generator": (None if generator is None
+                                     else generator.get_state())}
+
+    metrics = os.path.join(snap_dir, "metrics.jsonl")
+    loop = TrainLoop(model=model, criterion=crit, optimizer=opt,
+                     num_steps=steps, lr_schedule=opt.schedule,
+                     save_pred_every=save_every, snapshot_hook=hook,
+                     log_every=1, prune_type=prune_type,
+                     normalize=(ds.mean, ds.std), metrics_file=metrics)
+    st0 = create_train_state(model, params, state, opt,
+                             prune_type=prune_type, device=device)
+    loader = TrainLoader(ds, batch, seed=DATA_SEED, num_workers=workers)
+    it = iter(loader)
+    tap = _Tap(it, keep=keep)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        final = loop.run(st0, tap, generator=generator, device=device)
+    finally:
+        it.close()
+        loader.stop()
+    with open(metrics) as f:
+        lines = [json.loads(ln) for ln in f]
+    ends = [t0] + [ln["time"] for ln in lines]
+    step_ms = [(ends[i + 1] - ends[i]
+                - saved.get(i, {}).get("seconds", 0.0)) * 1e3
+               for i in range(len(lines))]
+    run = {"workers": workers,
+           "uses_processes": loader.use_processes,
+           "step_ms": step_ms,
+           "median_ms_steps_3_to_6": float(np.median(step_ms[2:6])),
+           "loader_wait_ms": [w * 1e3 for w in tap.waits],
+           "loss": [ln["loss"] for ln in lines],
+           "grad_norm": [ln["grad_norm"] for ln in lines],
+           "snapshots": {k: {"bytes": v["bytes"], "write_s": v["seconds"]}
+                         for k, v in saved.items()},
+           "peak_bytes": (torch.cuda.max_memory_allocated()
+                          if device != "cpu" else None)}
+    if len(lines) != steps or not all(np.isfinite(run["loss"])):
+        raise AssertionError(f"data loop: {len(lines)} steps, losses "
+                             f"{run['loss']}")
+    return final, run, saved, tap.kept
+
+
+def loader_alone(make_loader, n):
+    """The first ``n`` batches of a fresh loader, timed alone: seconds to
+    the first batch and batches a second over the rest."""
+    loader = make_loader()
+    it = iter(loader)
+    stamps = [time.perf_counter()]
+    try:
+        for _ in range(n):
+            next(it)
+            stamps.append(time.perf_counter())
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+        stop = getattr(loader, "stop", None)
+        if stop is not None:
+            stop()
+    rest = stamps[-1] - stamps[1]
+    return {"batches": n, "first_batch_s": stamps[1] - stamps[0],
+            "batches_per_s_after_first": (n - 1) / rest if rest else None,
+            "batches_per_s": n / (stamps[-1] - stamps[0])}
+
+
+def item_profile(ds, n=DATA_PROFILED_ITEMS):
+    """``n`` items of ``ds`` made in this process under cProfile: ms an
+    item on one core, no pool, and where it goes (own time)."""
+    ds.pre_processing(0)
+    ds.rng = np.random.default_rng(DATA_SEED)
+    prof = host_profile(lambda: [ds[i] for i in range(n)], n, ())
+    return {"items": n, "ms_per_item": prof["wall_ms_per_image"],
+            "top_own_ms_per_item": prof["top_own_ms_per_image"]}
+
+
+def data_pretrain(fx, snap_dir, workers, *, batch=DATA_BATCH,
+                  crop=DATA_CROP, steps=DATA_STEPS, device="cuda"):
+    """pretrain.sh's item path: CE (ds_weight 0.4) + EIC, SGD (lr 0.01,
+    wd 5e-4, no warmup, 4000 steps), balance 0, random scale, mirror and
+    brightness, classic f32 items through the native tail, from
+    ``workers`` decode processes; the last snapshot and ``score.msgpack``
+    on disk."""
+    ds = build_dataset("CS", fx["root"], fx["train"], split="train",
+                       crop_size=crop, scale=True, mirror=True,
+                       brightness=True, balance=0, seed=DATA_SEED,
+                       compact=False, native=True)
+    if not native.built():
+        raise AssertionError("pretrain: the native augment library did not "
+                             "build")
+    model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    params, state = init_graph(model.graph,
+                               torch.Generator().manual_seed(DATA_SEED),
+                               device=device)
+    crit = build_criterions("ce", ignore_label=255,
+                            class_weights=ds.class_weights,
+                            loss_para={"ds_weight": 0.4})
+    opt = build_optimizer(optim="sgd", learning_rate=0.01, momentum=0.9,
+                          weight_decay=0.0005, num_steps=4000, warmup=-1,
+                          params=params)
+    native.reset_calls()
+    final, run, saved, _ = data_loop(
+        model, ds, crit, opt, params, state, snap_dir, workers=workers,
+        prune_type="dcfp", save_every=steps, batch=batch, steps=steps,
+        device=device)
+    calls = native.calls()
+    score = os.path.join(snap_dir, "score.msgpack")
+    ckpt.save_eic(score, final.eic)
+    del final, saved
+    alone = loader_alone(lambda: TrainLoader(ds, batch, seed=DATA_SEED,
+                                             num_workers=workers), steps)
+    run.update(native_built=native.built(), native_calls=calls,
+               loader_alone=alone, item_profile=item_profile(ds))
+    # every item of every batch went through the fused tail, in the
+    # workers (the counts are shared with forked processes)
+    if calls["fused_crop_normalize"] < batch * steps or \
+            calls["fused_crop_label"] < batch * steps:
+        raise AssertionError(f"pretrain: native calls {calls}, expected at "
+                             f"least {batch * steps} each")
+    log("[data] pretrain: " + json.dumps(run))
+    return {"snapshot": os.path.join(snap_dir, f"CS_scenes_{steps}.msgpack"),
+            "score": score}, run
+
+
+def _same_tree(a, b, where):
+    """Bit-equal trees of numpy or tensor leaves; raises otherwise."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            _same_tree(a[k], b[k], f"{where}/{k}")
+        return
+    if a is None or b is None:
+        if a is not b:
+            raise AssertionError(f"{where}: None against a value")
+        return
+    if type(a) is int or type(b) is int:
+        if type(a) is not type(b) or a != b:
+            raise AssertionError(f"{where}: {a!r} != {b!r}")
+        return
+    x, y = (np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                       else v) for v in (a, b))
+    if x.dtype != y.dtype or x.shape != y.shape or \
+            x.tobytes() != y.tobytes():
+        raise AssertionError(f"{where}: differs")
+
+
+def data_prune(art, out_dir, *, device="cuda"):
+    """prune.sh: the pretrained snapshot and EIC from disk, the FLOPs
+    search to ``--prune-ratio 0.6`` (what ``dcfp_tpu/cli/prune.py:79-101``
+    calls: conv_deepsup kept, layer_keep 0.02, channel_align 128 at
+    512x512), ``pruned.msgpack`` and ``channel_cfg.msgpack`` written,
+    read back bit-equal, and the pruned graph rebuilt from them."""
+    train_model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    deploy_graph = build_model("deeplabv3", **EVAL_CFG).graph
+    p, s = init_graph(train_model.graph, torch.Generator().manual_seed(0),
+                      device="cpu")
+    p, s = ckpt.load_params_non_strict(art["snapshot"], p, s, device="cpu")
+    eic = ckpt.load_eic(art["score"])
+    t0 = time.perf_counter()
+    np_p, np_s = params_to_numpy(p, s)
+    result, gp, report = prune_to_flops(
+        train_model.graph, deploy_graph, np_p, np_s, eic, prune_ratio=0.6,
+        layer_keep=0.02, except_start_keys=("conv_deepsup",),
+        channel_align=128)
+    search_s = time.perf_counter() - t0
+    pruned = os.path.join(out_dir, "pruned.msgpack")
+    cfg_path = os.path.join(out_dir, "channel_cfg.msgpack")
+    ckpt.save_pruned(pruned, result.params, result.state)
+    ckpt.save_channel_cfg(cfg_path, result.channel_cfg)
+    cfg = ckpt.load_channel_cfg(cfg_path)
+    lp, ls = ckpt.load_pruned(pruned, device=device)
+    _same_tree(cfg, result.channel_cfg, "channel_cfg")
+    back_p, back_s = params_to_numpy(lp, ls)
+    _same_tree(back_p, result.params, "pruned params")
+    _same_tree(back_s, result.state, "pruned state")
+    graph = apply_channel_cfg(train_model.graph, cfg)
+    gp_, gs_ = init_graph(graph, torch.Generator().manual_seed(0),
+                          device="cpu")
+    sp, ss = slice_params_to_cfg(np_p, np_s, cfg)
+    shapes = [{n: {k: tuple(np.shape(v)) for k, v in d.items()}
+               for n, d in t.items()}
+              for t in (params_to_numpy(gp_, gs_)[0], sp, back_p)]
+    if not shapes[0] == shapes[1] == shapes[2]:
+        raise AssertionError("prune: the graph rebuilt from channel_cfg, "
+                             "the sliced and the loaded params differ in "
+                             "shape")
+    summary = {"global_percent": gp, "flops_ratio": report["flops_ratio"],
+               "params": [report["pruned_params"], report["base_params"]],
+               "search_s": search_s, "pruned_bytes": os.path.getsize(pruned),
+               "channel_cfg_bytes": os.path.getsize(cfg_path),
+               "reloaded_bit_equal": True}
+    if report["flops_ratio"] > 0.4:
+        raise AssertionError(f"prune: flops ratio {report['flops_ratio']}")
+    log("[data] prune: " + json.dumps(summary))
+    return {"pruned": pruned, "channel_cfg": cfg_path}, summary
+
+
+def data_finetune(fx, art, snap_dir, workers, *, batch=DATA_BATCH,
+                  crop=DATA_CROP, steps=DATA_STEPS, device="cuda"):
+    """finetune.sh's item path at the pruned widths: GSRL (ds_weight 0.4),
+    SGD (lr 0.01, wd 1e-3, warmup 1000, 36000 steps), balance 2,
+    resample, compact uint8 batches from ``workers`` decode processes,
+    seeded dropout; snapshots at step 3 and 6.  The step-3 snapshot is
+    reloaded into a fresh state (every leaf bit-equal to the state the
+    hook was given, step 3) and one step from it on the batch the run
+    took at step 4, with the run's dropout generator state, must give the
+    run's loss (rtol 1e-5)."""
+    cfg = ckpt.load_channel_cfg(art["channel_cfg"])
+    ds = build_dataset("CS", fx["root"], fx["train"], split="train",
+                       crop_size=crop, scale=True, mirror=True,
+                       brightness=True, balance=2, resample=True,
+                       compact=True, seed=DATA_SEED,
+                       label_index_path=fx["label_index"])
+    model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    model.graph = apply_channel_cfg(model.graph, cfg)
+    p, s = init_graph(model.graph, torch.Generator().manual_seed(DATA_SEED),
+                      device=device)
+    p, s = ckpt.load_params_non_strict(art["pruned"], p, s, device=device)
+    crit = build_criterions("gsrl", ignore_label=255,
+                            class_weights=ds.class_weights,
+                            loss_para={"ds_weight": 0.4})
+    opt = build_optimizer(optim="sgd", learning_rate=0.01, momentum=0.9,
+                          weight_decay=0.001, num_steps=36000, warmup=1000,
+                          params=p)
+    gen = torch.Generator().manual_seed(3)
+    final, run, saved, kept = data_loop(
+        model, ds, crit, opt, p, s, snap_dir, workers=workers,
+        prune_type=None, save_every=3, generator=gen, keep=True,
+        batch=batch, steps=steps, device=device)
+    if sorted(saved) != [3, steps]:
+        raise AssertionError(f"finetune: snapshots at {sorted(saved)}")
+    fresh = create_train_state(model, p, s, opt, device=device)
+    back = ckpt.load_train_state(saved[3]["path"], fresh, device=device)
+    if back.step != 3:
+        raise AssertionError(f"finetune: reloaded step {back.step}")
+    _same_tree(ckpt.train_state_dict(back),
+               ckpt.train_state_dict(saved[3]["state"]), "step-3 state")
+    replay = torch.Generator()
+    replay.set_state(saved[3]["generator"])
+    step = make_train_step(model, crit, opt, normalize=(ds.mean, ds.std),
+                           device=device)
+    _, m = step(back, kept[3], replay)
+    resumed, uninterrupted = float(m["loss"]), run["loss"][3]
+    rel = abs(resumed - uninterrupted) / abs(uninterrupted)
+    run.update(reloaded_step=back.step, reloaded_bit_equal=True,
+               step4_loss_uninterrupted=uninterrupted,
+               step4_loss_resumed=resumed, step4_loss_rel_err=rel,
+               resample_len=len(ds))
+    del final, back, fresh, saved
+    alone = loader_alone(lambda: TrainLoader(ds, batch, seed=DATA_SEED,
+                                             num_workers=workers), steps)
+    run.update(loader_alone=alone, item_profile=item_profile(ds))
+    log("[data] finetune: " + json.dumps(run))
+    if rel > 1e-5:
+        raise AssertionError(f"finetune: resumed step loss {resumed} against "
+                             f"{uninterrupted}")
+    return {"snapshot": os.path.join(snap_dir,
+                                     f"CS_scenes_{steps}.msgpack")}, run
+
+
+def data_eval(fx, art, snap, workers, *, device="cuda"):
+    """deploy.sh's eval from disk: the step-6 snapshot on the pruned graph
+    (``load_params_non_strict``), bf16, whole, ss, pad_inf to 1025x2049,
+    labels through K1, ``evaluate_pipelined`` over the val manifest (16
+    images listed 4 times: 5 untimed + 59 timed) on f32 and on compact
+    items, each from the prefetch thread (0 workers) and from ``workers``
+    decode processes; then the protocol loop over the same images decoded
+    once into memory.  Every confusion must be identical, and K1 launched
+    once an image."""
+    cfg = ckpt.load_channel_cfg(art["channel_cfg"])
+    graph = apply_channel_cfg(build_model("deeplabv3", **EVAL_CFG).graph,
+                              cfg)
+    p, s = init_graph(graph, torch.Generator().manual_seed(0), device="cpu")
+    p, s = ckpt.load_params_non_strict(snap, p, s, device="cpu")
+    pred = Predictor(graph, p, s, dtype=torch.bfloat16, align_corner=True,
+                     normalize=NORMALIZE, device=device)
+    kw = dict(num_classes=19, whole=True, align_corner=True,
+              fps_warmup=EVAL_WARMUP)
+    sets = {name: build_dataset("CS", fx["root"], fx["val"], split="val",
+                                compact=name == "compact")
+            for name in ("f32", "compact")}
+    n = len(sets["f32"])
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    loops, cms = {}, {}
+    for name, ds in sets.items():
+        for w in (0, workers):
+            tag = f"{name}_{w}_workers"
+            loader = EvalLoader(ds, batch_size=1, num_workers=w)
+            t0 = time.perf_counter()
+            res = evaluate(pred, loader, pipeline=True, **kw)
+            wall = time.perf_counter() - t0
+            cms[tag] = res["confusion"]
+            loops[tag] = {"img_per_s": n / wall, "fps_timed": res["fps"],
+                          "uses_processes": loader.use_processes}
+    distinct = [collate([sets["f32"][i]])
+                for i in range(n // DATA_VAL_REPEAT)]
+    t0 = time.perf_counter()
+    mem = evaluate(pred, _Cycle(distinct, n), **kw)
+    loops["in_memory_protocol"] = {"img_per_s": n / (time.perf_counter()
+                                                     - t0),
+                                   "fps_timed": mem["fps"]}
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = n * (len(cms) + 1)
+    for tag, cm in cms.items():
+        if not np.array_equal(cm, mem["confusion"]):
+            raise AssertionError(f"eval from disk: the {tag} loop's "
+                                 "confusion differs from the in-memory run")
+    if cms["f32_0_workers"].sum() != _valid_pixels(list(_Cycle(distinct,
+                                                                n))):
+        raise AssertionError("eval from disk: confusion does not count "
+                             "every labelled pixel")
+    if device != "cpu" and (launches["resize_argmax"] != want
+                            or sum(launches.values()) != want):
+        raise AssertionError(f"eval from disk: launches {launches}, "
+                             f"expected K1 {want} times and nothing else")
+    alone = {}
+    for name, ds in sets.items():
+        for w in (0, workers):
+            a = loader_alone(lambda: EvalLoader(ds, batch_size=1,
+                                                num_workers=w),
+                             min(DATA_ALONE_EVAL, n))
+            alone[f"{name}_{w}_workers"] = {
+                "img_per_s": a["batches_per_s"],
+                "img_per_s_after_first": a["batches_per_s_after_first"],
+                "first_image_s": a["first_batch_s"]}
+    summary = {"images_a_loop": n, "distinct_images": len(distinct),
+               "warmup": EVAL_WARMUP, "loops": loops, "loader_alone": alone,
+               "meanIU": mem["meanIU"], "confusion_identical": True,
+               "k1_launches": launches["resize_argmax"],
+               "k1_launches_expected": want}
+    log("[data] eval: " + json.dumps(summary))
+    return summary
+
+
+def loader_scaling(counts=(1, 2, 4, 8), waves=3):
+    """A probe for the loaders' worker counts, not a phase of ``main``:
+    the data cell's pretrain items (classic f32, native tail) and
+    finetune items (compact, resample) at batch 1 from N decode workers
+    (1: the prefetch thread; more: fork processes), each timed alone
+    over ``waves`` x N items after the first, with OpenCV's default
+    thread count and with one thread a process (set before the pool
+    forks).  Prints one ``{"loader_scaling": ...}`` line."""
+    import cv2
+    default = cv2.getNumThreads()
+    out = {"cpu_count": os.cpu_count(), "cv2_default_threads": default}
+    with tempfile.TemporaryDirectory() as tmp:
+        fx, _ = data_fixture(tmp)
+        common = dict(split="train", crop_size=DATA_CROP, scale=True,
+                      mirror=True, brightness=True, seed=DATA_SEED)
+        sets = {"pretrain_f32": build_dataset(
+                    "CS", fx["root"], fx["train"], balance=0, **common),
+                "finetune_compact": build_dataset(
+                    "CS", fx["root"], fx["train"], balance=2,
+                    resample=True, compact=True,
+                    label_index_path=fx["label_index"], **common)}
+        try:
+            for threads in (default, 1):
+                cv2.setNumThreads(threads)
+                for name, ds in sets.items():
+                    for n in counts:
+                        a = loader_alone(lambda: TrainLoader(
+                            ds, 1, seed=DATA_SEED, num_workers=n),
+                            1 + waves * n)
+                        out[f"{name}_cv2threads{threads}_workers{n}"] = {
+                            "first_item_s": a["first_batch_s"],
+                            "items_per_s_after_first":
+                                a["batches_per_s_after_first"]}
+        finally:
+            cv2.setNumThreads(default)
+    print(json.dumps({"loader_scaling": out}), flush=True)
+    return out
+
+
+def phase_data():
+    """The recipe through files (pretrain -> prune -> finetune -> eval) at
+    full width on the flagship R50, random weights: the fixture, the
+    native augment tail, the loaders' decode processes, every artifact
+    written and read back, and the deploy eval's K1.  The launch counts
+    are set to 0 before the phase and read after: the training stages
+    launch none of K1-K6, the eval K1 once an image.  Prints one
+    ``{"data": ...}`` line."""
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    workers = min(8, os.cpu_count() or 1)
+    stall = os.environ.get("DCFP_DECODE_STALL_TIMEOUT")
+    os.environ["DCFP_DECODE_STALL_TIMEOUT"] = DATA_STALL_S
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = (cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dirs = {k: os.path.join(tmp, k) for k in
+                    ("data", "pretrain", "prune", "finetune")}
+            for d in dirs.values():
+                os.makedirs(d)
+            fx, fixture = data_fixture(dirs["data"])
+            # the train stages with PyTorch's defaults, as phase_train
+            cudnn.benchmark, cudnn.allow_tf32 = False, True
+            matmul.allow_tf32 = False
+            art, pretrain = data_pretrain(fx, dirs["pretrain"], workers)
+            torch.cuda.empty_cache()
+            pruned, prune = data_prune(art, dirs["prune"])
+            fine, finetune = data_finetune(fx, pruned, dirs["finetune"],
+                                           workers)
+            torch.cuda.empty_cache()
+            if any(kernels.LAUNCHES.values()):
+                raise AssertionError(f"the data path's training launched "
+                                     f"a kernel: {kernels.LAUNCHES}")
+            # the deploy eval autotuned, as served
+            cudnn.benchmark, cudnn.allow_tf32 = True, False
+            evals = data_eval(fx, pruned, fine["snapshot"], workers)
+    finally:
+        cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = flags
+        if stall is None:
+            os.environ.pop("DCFP_DECODE_STALL_TIMEOUT", None)
+        else:
+            os.environ["DCFP_DECODE_STALL_TIMEOUT"] = stall
+    torch.cuda.empty_cache()
+    result = {"card": smi, "workers": workers,
+              "start_method": _fork_ctx().get_start_method(),
+              "cpu_count": os.cpu_count(),
+              "model": "deeplabv3-resnet50 os8 mg[1,2,4] stem128 19 classes",
+              "fixture": fixture, "pretrain": pretrain, "prune": prune,
+              "finetune": finetune, "eval": evals,
+              "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"data": result}), flush=True)
+    return result
+
+
 def main():
     phase_device()
     phase_build()
@@ -2265,6 +2835,7 @@ def main():
     del k4_case
     phase_train()
     eval_result = phase_eval()
+    data_result = phase_data()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()
@@ -2282,6 +2853,7 @@ def main():
                     "launches_on_phases_path":
                         phases["launches"]["resize_argmax"]},
              launches_on_eval_path=eval_result["deploy"]["k1_launches"],
+             launches_on_data_path=data_result["eval"]["k1_launches"],
              **k1_time),
         dict(name="stem_conv3x3_s2", route="cuda",
              source="dcfp_tpu_torch/csrc/stem_conv.cu",

@@ -5,7 +5,13 @@ as ``{node: {"kernel", "bias", "scale", ...}}``; state is
 ``{bn: {"mean", "var"}}``.  The names contain dots, which
 ``nn.ParameterDict`` and ``register_buffer`` reject, so the port keeps the
 same plain dicts, of tensors.  Conv kernels are HWIO in the JAX package
-and OIHW here; every other array keeps its shape.
+and OIHW here; every other array keeps its shape.  In the port a tensor
+is in the port's layout and a numpy array in the JAX package's (the
+pruner's trees, the checkpoint files).
+
+The checkpoint files hold the JAX package's layout, so every artifact
+crosses this module on its way to and from disk, the optimizer state in
+the optax chain's state-dict form (``opt_state_to_state_dict``).
 """
 
 from __future__ import annotations
@@ -48,8 +54,11 @@ def _tree_from_np(tree, dev: torch.device,
             for n, d in tree.items()}
 
 
-def _tree_to_np(tree):
-    return {n: {k: _to_np(k, v) for k, v in d.items()}
+def tree_to_numpy(tree):
+    """A params/state-shaped tree -> JAX-layout numpy: tensors convert as
+    in :func:`params_to_numpy`; numpy leaves are JAX layout already."""
+    return {n: {k: (_to_np(k, v) if isinstance(v, torch.Tensor)
+                    else np.asarray(v)) for k, v in d.items()}
             for n, d in tree.items()}
 
 
@@ -67,7 +76,7 @@ def params_to_numpy(params: Params, state: State
                     ) -> Tuple[Dict[str, Dict[str, np.ndarray]],
                                Dict[str, Dict[str, np.ndarray]]]:
     """The port's tensors -> JAX-layout numpy (bf16 widens to float32)."""
-    return _tree_to_np(params), _tree_to_np(state)
+    return tree_to_numpy(params), tree_to_numpy(state)
 
 
 def _states(opt_state):
@@ -111,7 +120,7 @@ def opt_state_to_numpy(state: dict, like):
     if isinstance(like, tuple) and not hasattr(like, "_fields"):
         return tuple(opt_state_to_numpy(state, part) for part in like)
     fields = getattr(like, "_fields", ())
-    new = {f: _tree_to_np(state[f]) for f in ("trace", "mu", "nu")
+    new = {f: tree_to_numpy(state[f]) for f in ("trace", "mu", "nu")
            if f in fields}
     if "count" in fields:
         new["count"] = np.asarray(state["count"], np.int32)
@@ -127,3 +136,38 @@ def eic_from_numpy(eic, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
 
 def eic_to_numpy(eic: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {n: v.detach().cpu().numpy() for n, v in eic.items()}
+
+
+def opt_state_to_state_dict(state: dict, masked: bool = False) -> dict:
+    """The port's optimizer state -> the state dict that flax's
+    ``to_state_dict`` makes of the optax chain it ports, numpy leaves in
+    JAX layout: SGD ``{"0": decay, "1": {"trace"}, "2": {"count"}}``,
+    AdamW ``{"0": {"count", "mu", "nu"}, "1": decay, "2": {"count"}}``,
+    where the weight decay's state is empty, ``{"inner_state": {}}``
+    under a ``no_decay`` mask (``masked``), and every count int32."""
+    count = np.asarray(state["count"], np.int32)
+    decay = {"inner_state": {}} if masked else {}
+    if "trace" in state:
+        return {"0": decay, "1": {"trace": tree_to_numpy(state["trace"])},
+                "2": {"count": count}}
+    return {"0": {"count": count, "mu": tree_to_numpy(state["mu"]),
+                  "nu": tree_to_numpy(state["nu"])},
+            "1": decay, "2": {"count": count}}
+
+
+def opt_state_from_state_dict(sd: dict, device: DeviceLike = None) -> dict:
+    """Inverse of :func:`opt_state_to_state_dict`: tensors on ``device``
+    (``None`` means CUDA).  The chain's counts must agree."""
+    dev = resolve_device(device)
+    counts = [int(np.asarray(part["count"])) for part in sd.values()
+              if isinstance(part, dict) and "count" in part]
+    if not counts or len(set(counts)) != 1:
+        raise ValueError(f"optimizer state counts disagree: {counts}")
+    trace = sd.get("1", {}).get("trace")
+    if trace is not None:
+        return {"count": counts[0], "trace": _tree_from_np(trace, dev)}
+    adam = sd.get("0", {})
+    if "mu" not in adam or "nu" not in adam:
+        raise ValueError("not an SGD (trace) or AdamW (mu, nu) state")
+    return {"count": counts[0], "mu": _tree_from_np(adam["mu"], dev),
+            "nu": _tree_from_np(adam["nu"], dev)}

@@ -83,10 +83,15 @@ class Optimizer:
     ``{"count": int, "mu": tree, "nu": tree}`` for AdamW, each tree keyed
     like the params.  ``count`` starts at 0 and rises by one per update;
     the lr of an update is ``schedule(count)`` before the increment.
+
+    ``masked``: weight decay runs under a ``no_decay`` mask, which shows
+    in the state layout of the optax chain this ports, and so in the
+    checkpoint files.
     """
     init: Callable[[Params], OptState]
     update: Callable[[Params, OptState, Params], Tuple[Params, OptState]]
     schedule: Callable[[int], float]
+    masked: bool = False
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
@@ -149,7 +154,7 @@ def build_optimizer(*, optim: str = "sgd", learning_rate: float = 1e-2,
             return tree_of(keys, upd), {"count": state["count"] + 1,
                                         "trace": tree_of(keys, trace)}
 
-        return Optimizer(init, update, schedule)
+        return Optimizer(init, update, schedule, mask is not None)
 
     b1, b2 = (float(x) for x in betas.split(","))
     eps = 1e-8
@@ -180,4 +185,4 @@ def build_optimizer(*, optim: str = "sgd", learning_rate: float = 1e-2,
         return tree_of(keys, upd), {"count": count, "mu": tree_of(keys, mu),
                                     "nu": tree_of(keys, nu)}
 
-    return Optimizer(init, update, schedule)
+    return Optimizer(init, update, schedule, mask is not None)

@@ -68,10 +68,11 @@ def test_source_has_no_jax_import(path):
     assert not _IMPORT.findall(src), f"{path} imports {_IMPORT.findall(src)}"
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """With CUDA absent, ``device=None`` means CUDA and raises; only an
     explicit ``device='cpu'`` runs on the CPU."""
-    from dcfp_tpu_torch.bridge import params_from_numpy
+    from dcfp_tpu_torch.bridge import (opt_state_from_state_dict,
+                                       params_from_numpy)
     from dcfp_tpu_torch.engine.deploy import make_inference_fn
     from dcfp_tpu_torch.engine.evaluator import Predictor, evaluate
     from dcfp_tpu_torch.engine.optim import build_optimizer
@@ -81,7 +82,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from dcfp_tpu_torch.graph.apply import init_graph
     from dcfp_tpu_torch.graph.ir import GraphBuilder
     from dcfp_tpu_torch.losses.criteria import build_criterions
+    from dcfp_tpu_torch.models import convert
     from dcfp_tpu_torch.models.heads import SegModel
+    from dcfp_tpu_torch.utils import checkpoint as ckpt
     from dcfp_tpu_torch.utils.edge import mask_to_boundary_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -133,3 +136,33 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         loop.run(state0, iter([batch]))
     assert loop.run(state0, iter([batch]), device="cpu").step == 1
+
+    # the artifact layer: what reads tensors back takes a device
+    snap = str(tmp_path / "snap.msgpack")
+    ckpt.save_train_state(snap, state1, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt.load_train_state(snap, state0)
+    assert ckpt.load_train_state(snap, state0, device="cpu").step == 1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt.load_params_non_strict(snap, params, state)
+    got, _ = ckpt.load_params_non_strict(snap, params, state, device="cpu")
+    assert got["pred"]["kernel"].device.type == "cpu"
+    pruned = str(tmp_path / "pruned.msgpack")
+    ckpt.save_pruned(pruned, params, state)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt.load_pruned(pruned)
+    assert ckpt.load_pruned(pruned, device="cpu")[0].keys() == params.keys()
+    sd = ckpt.train_state_dict(state1)["opt_state"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt_state_from_state_dict(sd)
+    assert opt_state_from_state_dict(sd, device="cpu")["count"] == 1
+    tsd = convert.to_torch_state_dict(params, state)
+    pth = str(tmp_path / "m.pth")
+    torch.save(tsd, pth)
+    for fn, args in ((convert.torch_state_dict_to_graph, (g, tsd)),
+                     (convert.load_torch_checkpoint, (g, pth)),
+                     (convert.merge_pretrained_backbone,
+                      (g, tsd, dict(params), dict(state), ""))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*args)
+        fn(*args, device="cpu")
