@@ -80,9 +80,18 @@ exits non-zero without them.  Phases, each of which raises on failure:
    processes, each confusion identical to the protocol loop's over the
    images decoded once into memory, K1 once an image; the loaders' rates
    alone; one ``{"data": ...}`` JSON line;
-10. one JSON line with every ported kernel: launches on its path, its
+10. the entry points (``phase_cli``): the Cityscapes scripts' commands
+    through the CLIs' ``main`` on a 1024x2048 fixture of 8 train and 8
+    val frames (label_index, pretrain, prune, finetune, evaluate,
+    deploy in bf16 and f32, evaluate f32 and ``--use-aot`` on both
+    artifacts, evaluate_test), every rc 0, K1 counted on each path (at
+    a captured graph's replays), the f32 ``--use-aot`` confusion equal
+    to the jit path's, the bf16 artifact's and both captured forms'
+    labels against the jit path's; then ``bench_torch.py`` in a child
+    process, its JSON line parsed and held; one ``{"cli": ...}`` line;
+11. one JSON line with every ported kernel: launches on its path, its
     check, its time beside its bound, plain and library times;
-11. last line: ``{"ok": true, "device": {...}}``.
+12. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -2335,7 +2344,7 @@ def data_fixture(root, hw=DATA_HW, n=DATA_IMAGES):
                        "files and decodes are larger than real frames'"}
     log("[data] fixture: " + json.dumps(summary))
     return {"root": root, "train": train, "val": val_rep,
-            "label_index": index}, summary
+            "val_distinct": val, "label_index": index}, summary
 
 
 class _Tap:
@@ -2816,6 +2825,388 @@ def phase_data():
     return result
 
 
+# ---------------------------------------------------------------------------
+# 10. the entry points: the Cityscapes scripts' commands through the CLIs
+# ---------------------------------------------------------------------------
+
+CLI_IMAGES = 8  # train and val frames of the fixture
+CLI_HW = DATA_HW  # the fixture's frames
+CLI_DEPLOY = "1025,2049"  # deploy.sh's --input-size: pad_inf of CLI_HW
+CLI_STEPS = "3"
+CLI_TEST_FRAMES = 2
+CLI_PRUNE_RATIO = "0.6"  # prune.sh's
+CLI_MODEL = ["--dataset", "CS", "--model", "deeplabv3",
+             "--backbone", "resnet50",
+             "--backbone-para", '{"os":8,"mg_unit":[1,2,4],"inplanes":128}',
+             "--align-corner", "true"]
+CLI_TRAIN = ["--input-size", "769,769", "--batch-size", "8",
+             "--random-seed", "42", "--optim", "sgd",
+             "--learning-rate", "0.01", "--random-mirror",
+             "--random-brightness", "--random-scale",
+             "--loss-para", '{"ds_weight":0.4}', "--num-steps", CLI_STEPS,
+             "--save-pred-every", CLI_STEPS, "--log-every", "1",
+             "--xla-options", "xla_tpu_scoped_vmem_limit_kib=49152"]
+BENCH_BLOCKS = "2"
+
+
+@contextlib.contextmanager
+def _recorded_evaluations(record):
+    """``engine.evaluator.evaluate`` appends each result (its confusion
+    included) to ``record`` while the block runs: the evaluate CLIs
+    import it when they run."""
+    from dcfp_tpu_torch.engine import evaluator
+    orig = evaluator.evaluate
+
+    def recorded(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        record.append(res)
+        return res
+
+    evaluator.evaluate = recorded
+    try:
+        yield
+    finally:
+        evaluator.evaluate = orig
+
+
+def _run_cli(name, argv, times, launches):
+    """``dcfp_tpu_torch.cli.<name>.main(argv)``, which must return 0; its
+    wall time and its kernel launches are kept under ``name``.  Returns
+    what it printed, which is logged."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"dcfp_tpu_torch.cli.{name.split(':')[0]}")
+    before = dict(kernels.LAUNCHES)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = mod.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    times[name] = time.perf_counter() - t0
+    launches[name] = {k: kernels.LAUNCHES[k] - before[k]
+                      for k in kernels.LAUNCHES}
+    for line in printed.getvalue().splitlines():
+        log(f"[cli] {name} printed: {line}")
+    log(f"[cli] {name}: rc {rc}, {times[name]:.2f} s, K1 "
+        f"{launches[name]['resize_argmax']}")
+    if rc != 0:
+        raise AssertionError(f"cli {name} returned {rc}")
+    return printed.getvalue()
+
+
+def cli_served_snapshot(snap, cfg_path, fx_root, val_list, out,
+                        device="cuda"):
+    """The snapshot the serving commands restore, written to ``out``:
+    ``snap`` with the classifier's bias set to minus each class's mean
+    logit over the first val frame (the f32 body run with the bias at
+    0).  A few steps from random weights leave the classifier's learnt
+    offsets far above the features' spread, and every pixel one class;
+    labels that do not vary cannot tell a right capture or export from
+    one that ignores its input.  Centred, the labels follow the image."""
+    from dcfp_tpu_torch.engine.deploy import make_split_inference_fn
+    graph = apply_channel_cfg(build_model("deeplabv3", **EVAL_CFG).graph,
+                              ckpt.load_channel_cfg(cfg_path))
+    p, s = init_graph(graph, torch.Generator().manual_seed(0), device="cpu")
+    p, s = ckpt.load_params_non_strict(snap, p, s, device="cpu")
+    p["last_conv.6"]["bias"].zero_()
+    body, _, dparams = make_split_inference_fn(
+        graph, p, s, dtype=torch.float32, output="argmax", device=device)
+    img = collate([build_dataset("CS", fx_root, val_list, split="val")[0]])
+    with torch.inference_mode():
+        z = body(dparams, torch.from_numpy(img["img"]).to(device))
+    tree = ckpt.load_pytree(snap)
+    head = tree["params"]["last_conv.6"]
+    head["bias"] = (-z.float().mean((0, 2, 3))).cpu().numpy().astype(
+        head["bias"].dtype)
+    ckpt.save_pytree(out, tree)
+    return out
+
+
+CLI_MIN_CLASSES = 10  # distinct labels the served snapshot must predict
+CLI_MAX_SHARE = 0.5  # of the pixels, for its most frequent label
+
+
+def cli_bf16_agreement(fx_root, val_list, snap, cfg_path, art_dir,
+                       device="cuda"):
+    """The bf16 artifact's labels against the jit path's (the body and
+    K1 tail of ``make_split_inference_fn``, bf16, as ``Predictor`` runs
+    them, on the same snapshot) on the val frames, padded to 1025x2049 as
+    the evaluator pads them: agreement >= 0.999, and every differing
+    pixel a near-tie of the jit body's resized logits (top-2 within 8
+    bf16 ulp of the best).  On the card, the same body and tail captured
+    in CUDA graphs, as the split form and as one graph, must give the
+    jit labels exactly, frame after frame: a capture replays the same
+    launches on the image it is given.  The jit labels must vary, or
+    none of this could fail: at least ``CLI_MIN_CLASSES`` distinct
+    labels, none on more than ``CLI_MAX_SHARE`` of the pixels, and two
+    frames in a row never labelled alike."""
+    from dcfp_tpu_torch.engine.deploy import (aot_compile, aot_compile_split,
+                                              load_deploy_params,
+                                              load_serialized,
+                                              make_split_inference_fn)
+    graph = apply_channel_cfg(build_model("deeplabv3", **EVAL_CFG).graph,
+                              ckpt.load_channel_cfg(cfg_path))
+    p, s = init_graph(graph, torch.Generator().manual_seed(0), device="cpu")
+    p, s = ckpt.load_params_non_strict(snap, p, s, device="cpu")
+    body, tail, dparams = make_split_inference_fn(
+        graph, p, s, dtype=torch.bfloat16, fold_bn=True, output="argmax",
+        device=device)
+    run = load_serialized(os.path.join(art_dir, "model.pt2"))
+    aot_params = load_deploy_params(os.path.join(
+        art_dir, "deploy_params.msgpack"), device)
+    ds = build_dataset("CS", fx_root, val_list, split="val")
+    h, w = ds[0]["img"].shape[:2]
+    shape = (1,) + pad_inf((h, w)) + (3,)
+    captured = {}
+    if device != "cpu":
+        captured["split"] = aot_compile_split(body, tail, dparams, shape)
+        captured["single"] = aot_compile(
+            lambda p_, x_: tail(body(p_, x_), shape[1:3]), dparams, shape)
+    n_diff = n_pix = n_captured_diff = n_alike = 0
+    worst_ulps = 0.0
+    hist = torch.zeros(256, dtype=torch.int64, device=device)
+    prev = None
+    for i in range(len(ds)):
+        img = collate([ds[i]])["img"]
+        h, w = img.shape[1:3]
+        ph, pw = pad_inf((h, w))
+        x = torch.from_numpy(np.pad(img, ((0, 0), (0, ph - h), (0, pw - w),
+                                          (0, 0)))).to(device)
+        with torch.inference_mode():
+            z = body(dparams, x)
+            jit = tail(z, (ph, pw))
+            aot = run(aot_params, x.permute(0, 3, 1, 2))
+            for form in captured.values():
+                # a replay overwrites the last one's output: read it now
+                n_captured_diff += int((form(dparams, x) != jit).sum())
+        hist += torch.bincount(jit.flatten().long(), minlength=256)
+        if prev is not None and torch.equal(prev, jit):
+            n_alike += 1
+        prev = jit
+        diff = jit != aot
+        n_diff += int(diff.sum())
+        n_pix += diff.numel()
+        if bool(diff.any()):
+            up = resize_bilinear(z.permute(0, 2, 3, 1), (ph, pw),
+                                 True).float()
+            top2 = up.topk(2, dim=-1).values[diff]
+            ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+                torch.log2(top2[:, 0].abs().clamp_min(1e-30))))
+            worst_ulps = max(worst_ulps, float(
+                ((top2[:, 0] - top2[:, 1]) / ulp).max()))
+    hist = hist.cpu().numpy()
+    agreement = 1.0 - n_diff / n_pix
+    out = {"pixels": n_pix, "differing": n_diff, "agreement": agreement,
+           "worst_top2_gap_bf16_ulps": worst_ulps,
+           "jit_classes": int((hist > 0).sum()),
+           "jit_top_class_share": float(hist.max() / hist.sum()),
+           "frames_labelled_alike": n_alike,
+           "captured_forms": sorted(captured),
+           "captured_differing": n_captured_diff}
+    log("[cli] bf16 artifact vs jit: " + json.dumps(out))
+    if (out["jit_classes"] < CLI_MIN_CLASSES
+            or out["jit_top_class_share"] > CLI_MAX_SHARE or n_alike):
+        raise AssertionError(f"the served snapshot's labels do not vary "
+                             f"enough to hold anything: {out}")
+    if n_captured_diff:
+        raise AssertionError(f"captured forms vs jit labels: {out}")
+    if agreement < 0.999 or worst_ulps > 8:
+        raise AssertionError(f"bf16 artifact vs jit labels: {out}")
+    return out
+
+
+def cli_bench():
+    """``python3 bench_torch.py`` in a child process, as a user runs it,
+    with ``DCFP_BENCH_BLOCKS=2``: its one JSON line, parsed and held."""
+    env = dict(os.environ, DCFP_BENCH_BLOCKS=BENCH_BLOCKS)
+    env.pop("DCFP_PLATFORM", None)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "bench_torch.py"], env=env,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    log("[cli] bench_torch.py: " + json.dumps(line))
+    if not (line["value"] > 0 and line["vs_baseline"] > 1
+            and line["detail"]["backend"] == "cuda"):
+        raise AssertionError(f"bench_torch.py: {line}")
+    return line, seconds
+
+
+def phase_cli(device="cuda"):
+    """The Cityscapes scripts' commands (scripts/cs/*.sh, the module
+    renamed to ``dcfp_tpu_torch.cli``) in this process through each CLI's
+    ``main(argv)``, on a 1024x2048 fixture of 8 train and 8 val frames,
+    the flagship flags (DeepLabV3-R50, os 8, mg [1, 2, 4], stem 128, 769^2
+    crops, batch 8, the JAX defaults' decode workers): label_index,
+    pretrain (CE + EIC, 3 steps), prune to 0.6, finetune (GSRL, balance
+    2, resample, 3 steps), then, on the finetuned snapshot with its
+    classifier bias centred (``cli_served_snapshot``, so the labels
+    vary), evaluate (bf16, pipelined, compact), deploy (1025x2049 NCHW
+    argmax) in bf16 and f32, evaluate f32 and ``--use-aot`` on both
+    artifacts, evaluate_test on 2 frames; then ``bench_torch.py`` as a
+    child process.  Holds every CLI's rc 0, K1 launched on the evaluate,
+    deploy and ``--use-aot`` paths (counted at the captured graphs'
+    replays), the f32 ``--use-aot`` confusion equal to the jit path's,
+    and the bf16 artifact's and the captured forms' labels against the
+    jit path's (``cli_bf16_agreement``, which also holds that the labels
+    vary).  Prints one ``{"cli": ...}`` line.  ``device="cpu"``, with
+    smaller ``CLI_*`` sizes, dry-runs it on the CPU, without the
+    bench."""
+    t_phase = time.perf_counter()
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+             matmul.allow_tf32)
+    env_keys = ("DCFP_CS_ROOT", "DCFP_CS_TRAIN_LIST", "DCFP_CS_VAL_LIST",
+                "DCFP_CS_TEST_LIST", "DCFP_PLATFORM")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    times, launches, evals = {}, {}, []
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                _recorded_evaluations(evals):
+            fx, _ = data_fixture(os.path.join(tmp, "data"), hw=CLI_HW,
+                                 n=CLI_IMAGES)
+            root = fx["root"]
+            test_list = os.path.join(root, "test_frames.lst")
+            with open(fx["val_distinct"]) as f:
+                frames = [ln.split()[0] for ln in f if ln.strip()]
+            with open(test_list, "w") as f:
+                f.write("".join(fr + "\n"
+                                for fr in frames[:CLI_TEST_FRAMES]))
+            os.environ.pop("DCFP_PLATFORM", None)
+            if device == "cpu":
+                os.environ["DCFP_PLATFORM"] = "cpu"
+            os.environ.update(DCFP_CS_ROOT=root,
+                              DCFP_CS_TRAIN_LIST=fx["train"],
+                              DCFP_CS_VAL_LIST=fx["val_distinct"],
+                              DCFP_CS_TEST_LIST=test_list)
+            d = {k: os.path.join(tmp, k) for k in
+                 ("pretrain", "prune", "finetune", "deploy_bf16",
+                  "deploy_f32", "submission")}
+            # the train stages with PyTorch's defaults, as phase_data
+            cudnn.benchmark, cudnn.allow_tf32 = False, True
+            matmul.allow_tf32 = False
+            _run_cli("label_index", ["--dataset", "CS", "--save-dir", root],
+                     times, launches)
+            _run_cli("train:pretrain", CLI_MODEL + CLI_TRAIN + [
+                "--balance", "0", "--loss-type", "ce",
+                "--weight-decay", "0.0005", "--warmup", "-1",
+                "--prune-type", "dcfp", "--pretrained", "auto",
+                "--snapshot-dir", d["pretrain"]], times, launches)
+            _run_cli("prune", CLI_MODEL + [
+                "--prune-ratio", CLI_PRUNE_RATIO, "--save-path", d["prune"],
+                "--model-path", os.path.join(
+                    d["pretrain"], f"CS_scenes_{CLI_STEPS}.msgpack"),
+                "--score-path", os.path.join(d["pretrain"],
+                                             "score.msgpack")],
+                times, launches)
+            cfg = os.path.join(d["prune"], "channel_cfg.msgpack")
+            _run_cli("train:finetune", CLI_MODEL + CLI_TRAIN + [
+                "--balance", "2", "--resample", "true", "--loss-type",
+                "gsrl", "--weight-decay", "0.001", "--warmup", "1",
+                "--resume", os.path.join(d["prune"], "pruned.msgpack"),
+                "--channel-cfg", cfg, "--snapshot-dir", d["finetune"]],
+                times, launches)
+            torch.cuda.empty_cache()
+            snap = cli_served_snapshot(
+                os.path.join(d["finetune"], f"CS_scenes_{CLI_STEPS}.msgpack"),
+                cfg, root, fx["val_distinct"],
+                os.path.join(d["finetune"], "CS_scenes_served.msgpack"),
+                device)
+            eval_args = CLI_MODEL + [
+                "--data-dir", "val", "--batch-size", "1", "--whole", "true",
+                "--flip", "false", "--input-size", "769,769", "--ms", "1",
+                "--restore-from", snap, "--channel-cfg", cfg,
+                "--result-file", os.path.join(tmp, "result.txt")]
+            # the eval and serving stages in f32 without TF32, one cuDNN
+            # algorithm a shape, so the two f32 paths can be held equal
+            cudnn.deterministic, cudnn.allow_tf32 = True, False
+            _run_cli("evaluate:bf16_pipelined", eval_args + [
+                "--dtype", "bfloat16", "--pipeline", "true",
+                "--compact", "true"], times, launches)
+            deploys = {}
+            for dt in ("bf16", "f32"):
+                deploys[dt] = json.loads(_run_cli(f"deploy:{dt}", CLI_MODEL + [
+                    "--input-size", CLI_DEPLOY, "--input-format", "nchw",
+                    "--output", "argmax", "--restore-from", snap,
+                    "--channel-cfg", cfg, "--save-dir", d[f"deploy_{dt}"],
+                    "--dtype", {"bf16": "bfloat16", "f32": "float32"}[dt]],
+                    times, launches).splitlines()[-1])
+            _run_cli("evaluate:f32", eval_args + ["--dtype", "float32"],
+                     times, launches)
+            for dt in ("f32", "bf16"):
+                _run_cli(f"evaluate:aot_{dt}", eval_args + [
+                    "--dtype", {"bf16": "bfloat16", "f32": "float32"}[dt],
+                    "--use-aot", "true", "--aot-path",
+                    os.path.join(d[f"deploy_{dt}"], "model.pt2")],
+                    times, launches)
+            _run_cli("evaluate_test", CLI_MODEL + [
+                "--data-dir", "test", "--whole", "true", "--ms", "1",
+                "--restore-from", snap, "--channel-cfg", cfg,
+                "--output-dir", d["submission"]], times, launches)
+            pngs = sorted(os.listdir(os.path.join(d["submission"], "raw")))
+            path_launches = dict(kernels.LAUNCHES)
+            cms = {name: res["confusion"] for name, res in zip(
+                ("bf16_pipelined", "f32", "aot_f32", "aot_bf16"), evals)}
+            agreement = cli_bf16_agreement(root, fx["val_distinct"], snap,
+                                           cfg,
+                                           d["deploy_bf16"], device)
+            with open(os.path.join(d["deploy_bf16"], "meta.json")) as f:
+                meta = json.load(f)
+            artifact_bytes = {n: os.path.getsize(os.path.join(
+                d["deploy_bf16"], n)) for n in sorted(os.listdir(
+                    d["deploy_bf16"]))}
+    finally:
+        (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+         matmul.allow_tf32) = flags
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if len(pngs) != CLI_TEST_FRAMES:
+        raise AssertionError(f"evaluate_test wrote {pngs}")
+    if not np.array_equal(cms["aot_f32"], cms["f32"]):
+        raise AssertionError("evaluate --use-aot f32: the confusion differs "
+                             "from the jit path's")
+    k1 = {name: n["resize_argmax"] for name, n in launches.items()}
+    for name in ([] if device == "cpu" else ("evaluate:bf16_pipelined", "deploy:bf16", "deploy:f32",
+                 "evaluate:aot_f32", "evaluate:aot_bf16")):
+        if k1[name] <= 0:
+            raise AssertionError(f"cli {name} launched no K1: {launches}")
+    for name in ([] if device == "cpu" else
+                 ("evaluate:aot_f32", "evaluate:aot_bf16")):
+        if k1[name] != CLI_IMAGES:
+            raise AssertionError(f"cli {name}: K1 {k1[name]} times for "
+                                 f"{CLI_IMAGES} images")
+    others = {k: v for k, v in path_launches.items() if k != "resize_argmax"}
+    if any(others.values()):
+        raise AssertionError(f"the CLI path launched other kernels: "
+                             f"{others}")
+    bench, bench_s = cli_bench() if device != "cpu" else (None, None)
+    result = {"model": "deeplabv3-resnet50 os8 mg[1,2,4] stem128 19 classes",
+              "frames": {"train": CLI_IMAGES, "val": CLI_IMAGES,
+                         "test": CLI_TEST_FRAMES, "hw": list(CLI_HW)},
+              "seconds": times, "k1_launches": k1,
+              "k1_launches_on_cli_path": path_launches["resize_argmax"],
+              "deploy": deploys, "deploy_meta": meta,
+              "artifact_bytes": artifact_bytes,
+              "aot_f32_confusion_equal": True,
+              "meanIU": {k: evals[i]["meanIU"] for i, k in enumerate(
+                  ("bf16_pipelined", "f32", "aot_f32", "aot_bf16"))},
+              "bf16_artifact_vs_jit": agreement,
+              "bench": bench, "bench_s": bench_s,
+              "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"cli": result}), flush=True)
+    return result
+
+
 def main():
     phase_device()
     phase_build()
@@ -2836,6 +3227,7 @@ def main():
     phase_train()
     eval_result = phase_eval()
     data_result = phase_data()
+    cli_result = phase_cli()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()
@@ -2854,6 +3246,7 @@ def main():
                         phases["launches"]["resize_argmax"]},
              launches_on_eval_path=eval_result["deploy"]["k1_launches"],
              launches_on_data_path=data_result["eval"]["k1_launches"],
+             launches_on_cli_path=cli_result["k1_launches_on_cli_path"],
              **k1_time),
         dict(name="stem_conv3x3_s2", route="cuda",
              source="dcfp_tpu_torch/csrc/stem_conv.cu",

@@ -29,10 +29,15 @@ State = Dict[str, Dict[str, torch.Tensor]]
 
 def _from_np(key: str, value, device: torch.device,
              dtype: Optional[torch.dtype]) -> torch.Tensor:
-    a = np.asarray(value)
-    if key == "kernel" and a.ndim == 4:
-        a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    if isinstance(value, torch.Tensor):  # a bfloat16 leaf of a file
+        t = value.permute(3, 2, 0, 1) if (key == "kernel"
+                                          and value.dim() == 4) else value
+        t = t.contiguous()
+    else:
+        a = np.asarray(value)
+        if key == "kernel" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -62,12 +67,24 @@ def tree_to_numpy(tree):
             for n, d in tree.items()}
 
 
+def tree_to_file_layout(tree):
+    """A params-shaped tree of the port's tensors -> the JAX package's
+    layout (HWIO kernels) on the host, each tensor at its own dtype: the
+    tree the checkpoint writer packs, bfloat16 included."""
+    return {n: {k: (v.detach().cpu().permute(2, 3, 1, 0).contiguous()
+                    if k == "kernel" and v.dim() == 4
+                    else v.detach().cpu().contiguous())
+                for k, v in d.items()}
+            for n, d in tree.items()}
+
+
 def params_from_numpy(params, state, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None
                       ) -> Tuple[Params, State]:
-    """JAX-layout numpy (or array-like) params/state -> the port's tensors
-    on ``device``.  ``dtype`` casts floating params (state stays as
-    given, like the JAX package's float32 BN statistics)."""
+    """JAX-layout numpy (or array-like, or the bfloat16 tensors a file
+    gives) params/state -> the port's tensors on ``device``.  ``dtype``
+    casts floating params (state stays as given, like the JAX package's
+    float32 BN statistics)."""
     dev = resolve_device(device)
     return _tree_from_np(params, dev, dtype), _tree_from_np(state, dev)
 

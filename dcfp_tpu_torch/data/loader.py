@@ -27,6 +27,7 @@ import itertools
 import multiprocessing as mp
 import os
 import queue
+import signal
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
@@ -81,10 +82,19 @@ def _epoch_order(dataset, seed: int, epoch: int, rank: int, world: int
     return order[rank::world]
 
 
+def _default_signals() -> None:
+    """A forked worker inherits the parent's Python signal handlers: the
+    train loop's SIGTERM handler would keep it alive through its pool's
+    ``terminate``.  Workers take the defaults back."""
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    signal.signal(signal.SIGINT, signal.default_int_handler)
+
+
 def _decode_worker(dataset, seed: int, rank: int, idx_q, res_q):
     """Worker process main: resolve (epoch, batch, idxs) tickets.
     Calls dataset.pre_processing on epoch change so the (seeded,
     process-consistent) resample index regenerates (train.py:237)."""
+    _default_signals()
     current_epoch = -1
     while True:
         item = idx_q.get()
@@ -317,6 +327,7 @@ class TrainLoader:
 def _eval_decode_worker(dataset, idx_q, res_q):
     """Eval pool worker: resolve (serial, sample_idxs) tickets to
     collated batches (no augmentation randomness to reseed)."""
+    _default_signals()
     while True:
         item = idx_q.get()
         if item is None:

@@ -11,19 +11,31 @@ argmax (port of ``dcfp_tpu/engine/deploy.py``, main path).
   (``input_format="phases"``), whose stem conv runs as the stem conv
   kernel (K2) and the rest of the graph re-rooted after it.
 
-PyTorch runs eagerly, so there is no AOT compile or serialized artifact
-here yet; ``make_split_inference_fn`` keeps the JAX package's body/tail
-split, which is where the kernel sits.
+``make_split_inference_fn`` keeps the JAX package's body/tail split,
+which is where the kernel sits.  The fixed-shape compile and the
+serialized artifact (the TRT engine file's analog) are PyTorch's:
+
+* ``aot_compile*`` capture the forward at one shape in CUDA graphs after
+  a warm-up, so a request replays recorded launches with no Python in
+  between (on an explicit CPU device the function is returned as is);
+* ``export_serialized*`` write ``torch.export`` programs (body to
+  ``path``, K1 tail to ``path + ".tail"``, K1 recorded as the operator
+  ``dcfp_tpu_torch::resize_argmax_cm``), which ``load_serialized`` runs
+  eagerly; the weights travel beside them in ``deploy_params.msgpack``
+  (``save_deploy_params``), in the JAX package's layout.
 """
 
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from dcfp_tpu_torch import bridge
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.graph.apply import graph_apply
 from dcfp_tpu_torch.graph.ir import Graph
@@ -181,6 +193,10 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
             run_graph = run_graph.copy()
             run_graph.outputs = [node.inputs[0] if o == "pred" else o
                                  for o in run_graph.outputs]
+            # the interpreter runs every node: keep the full-resolution
+            # resize, which the tail replaces, out of the body
+            if not run_graph.consumers("pred"):
+                del run_graph.nodes["pred"]
 
     @torch.inference_mode()
     def body_fn(p, image):
@@ -250,6 +266,250 @@ def make_inference_fn(graph: Graph, params: Dict, state: Dict, *,
                        infer_out_hw(image.shape, input_format, input_hw))
 
     return fn, dev_params
+
+
+# ---------------------------------------------------------------------------
+# fixed-shape compile: CUDA-graph capture (the 'engine build')
+# ---------------------------------------------------------------------------
+
+def _first_device(tree: Dict) -> torch.device:
+    for d in tree.values():
+        for v in d.values():
+            return v.device
+    raise ValueError("empty params")
+
+
+class _Replay:
+    """``fn(*args)`` captured in a CUDA graph, and its static output.
+    The kernel wrappers count their launches while the graph is
+    recorded, when nothing runs; the count moves to the replays, each of
+    which launches what was recorded."""
+
+    def __init__(self, fn, args, dev: torch.device, warmup: int = 3):
+        from dcfp_tpu_torch.ops.kernels import LAUNCHES
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # cuDNN's plans, K1's tap tables and the resize matrices are
+            # made here: a host-to-device copy cannot be captured
+            for _ in range(warmup):
+                fn(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn(*args)
+        self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k, n in self.launches.items():
+            LAUNCHES[k] -= n
+
+    def replay(self) -> None:
+        from dcfp_tpu_torch.ops.kernels import LAUNCHES
+        self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+
+
+def _static_input(input_shape, input_dtype, dev) -> torch.Tensor:
+    return torch.zeros(tuple(input_shape), dtype=input_dtype, device=dev)
+
+
+def _feed(static: torch.Tensor, image: torch.Tensor) -> None:
+    if tuple(image.shape) != tuple(static.shape):
+        raise ValueError(f"compiled for input {tuple(static.shape)}, got "
+                         f"{tuple(image.shape)}")
+    static.copy_(image)
+
+
+def _check_params(p, params) -> None:
+    if p is not params:
+        raise ValueError("a captured forward runs on the params it was "
+                         "captured with; pass the same params object")
+
+
+def aot_compile(fn, params, input_shape: Tuple[int, ...],
+                input_dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None):
+    """Compile ``fn(params, image)`` at a fixed shape (the 'engine
+    build'): on CUDA, warm it up on a side stream, capture one call in a
+    CUDA graph and return ``run(params, image)``, which copies ``image``
+    into the static input, replays the graph and returns the static
+    output.  Each replay overwrites that output: use it, or copy it,
+    before the next call.  On an explicit CPU ``device`` returns ``fn``
+    unchanged."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return fn
+    t0 = time.time()
+    static = _static_input(input_shape, input_dtype, dev)
+    graph = _Replay(fn, (params, static), dev)
+    log.info("CUDA-graph capture took %.1fs", time.time() - t0)
+
+    def run(p, image):
+        _check_params(p, params)
+        _feed(static, image)
+        graph.replay()
+        return graph.out
+
+    return run
+
+
+def aot_compile_split(body_fn, tail_fn, params,
+                      input_shape: Tuple[int, ...],
+                      input_dtype: torch.dtype = torch.float32,
+                      input_format: str = "nhwc", input_hw=None,
+                      device: DeviceLike = None):
+    """Capture body and tail (from :func:`make_split_inference_fn`) as two
+    CUDA graphs and return ``run(params, image)`` replaying them in turn;
+    the tail reads the body's static logits in place.  On an explicit CPU
+    ``device``, the two functions chained."""
+    if tail_fn is None:
+        return aot_compile(body_fn, params, input_shape, input_dtype,
+                           device)
+    dev = resolve_device(device)
+    out_hw = infer_out_hw(input_shape, input_format, input_hw)
+    if dev.type == "cpu":
+        return lambda p, image: tail_fn(body_fn(p, image), out_hw)
+    static = _static_input(input_shape, input_dtype, dev)
+    body = _Replay(body_fn, (params, static), dev)
+    tail = _Replay(tail_fn, (body.out, out_hw), dev)
+
+    def run(p, image):
+        _check_params(p, params)
+        _feed(static, image)
+        body.replay()
+        tail.replay()
+        return tail.out
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# serialized artifact: torch.export programs + deploy_params.msgpack
+# ---------------------------------------------------------------------------
+
+class _Program(torch.nn.Module):
+    """``fn(*args)`` as the module ``torch.export`` traces."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _sorted_params(params: Dict) -> Dict:
+    """Params with their keys sorted at both levels: the tree order of an
+    exported program's input, whatever order the caller's dict has (the
+    msgpack file's is sorted, a graph's is not)."""
+    return {n: {k: params[n][k] for k in sorted(params[n])}
+            for n in sorted(params)}
+
+
+def _export(fn, args, path: str):
+    """Trace ``fn(*args)`` with ``torch.export`` and save it to ``path``."""
+    fn = getattr(fn, "__wrapped__", fn)  # the inference_mode decorator
+    with torch.no_grad():
+        exported = torch.export.export(_Program(fn), tuple(args),
+                                       strict=False)
+    # the file would carry the example inputs (the params and an image)
+    exported.example_inputs = None
+    with open(path, "wb") as f:  # a file object: any name, not only .pt2
+        torch.export.save(exported, f)
+    return exported
+
+
+def _remove_stale_tail(path: str) -> None:
+    """Remove a ``path + '.tail'`` left by a previous split export:
+    :func:`load_serialized` would otherwise chain the stale tail onto the
+    freshly exported body."""
+    tail = path + ".tail"
+    if os.path.exists(tail):
+        os.remove(tail)
+        log.info("removed stale split tail %s", tail)
+
+
+def export_serialized(fn, params, input_shape: Tuple[int, ...], path: str,
+                      input_dtype: torch.dtype = torch.float32) -> None:
+    """Serialize ``fn(params, image)`` at a fixed input shape as a
+    ``torch.export`` program (the TRT-engine-file analog, totrt.py:122);
+    ``params`` is an input of the program, as in the JAX package's
+    export, so the weights are not in the file.  The image is made on
+    the params' device."""
+    dev = _first_device(params)
+    _export(fn, (_sorted_params(params),
+                 _static_input(input_shape, input_dtype, dev)), path)
+    # a .tail from a previous split export would be chained onto this
+    # fresh body by load_serialized; export_serialized_split rewrites it
+    # right after this call when the new export IS split
+    _remove_stale_tail(path)
+    log.info("serialized %d-byte program to %s", os.path.getsize(path), path)
+
+
+def export_serialized_split(body_fn, tail_fn, params,
+                            input_shape: Tuple[int, ...], path: str,
+                            input_dtype: torch.dtype = torch.float32,
+                            input_format: str = "nhwc",
+                            input_hw=None) -> None:
+    """Serialize a split deploy engine: the conv body to ``path`` and the
+    K1 tail to ``path + '.tail'`` (absent when tail_fn is None)."""
+    export_serialized(body_fn, params, input_shape, path, input_dtype)
+    if tail_fn is None:
+        return
+    dev = _first_device(params)
+    with torch.no_grad():
+        z = getattr(body_fn, "__wrapped__", body_fn)(
+            params, _static_input(input_shape, input_dtype, dev))
+    out_hw = infer_out_hw(input_shape, input_format, input_hw)
+    _export(lambda logits: tail_fn(logits, out_hw), (z,), path + ".tail")
+    log.info("serialized %d-byte tail program to %s.tail",
+             os.path.getsize(path + ".tail"), path)
+
+
+def load_serialized(path: str):
+    """Load a serialized deploy engine as ``run(params, image)``: the
+    body program, chained with ``path + '.tail'`` where a split export
+    wrote one.  The programs run eagerly (no capture), so each call
+    returns fresh tensors."""
+    def load(p):
+        with open(p, "rb") as f, warnings.catch_warnings():
+            # the archive's bytes are read-only; the tensors are copied
+            warnings.filterwarnings("ignore", message=".*not writable")
+            return torch.export.load(f).module()
+
+    body = load(path)
+    tail = load(path + ".tail") if os.path.exists(path + ".tail") else None
+
+    @torch.inference_mode()
+    def run(p, image):
+        out = body(_sorted_params(p), image)
+        return out if tail is None else tail(out)
+
+    return run
+
+
+def save_deploy_params(path: str, dev_params: Dict) -> None:
+    """``deploy_params.msgpack``: the folded deploy params as the JAX
+    package's deploy CLI writes them (its tree, HWIO kernels, each leaf
+    at the export dtype), byte for byte."""
+    from dcfp_tpu_torch.utils import checkpoint as ckpt
+    ckpt.save_pytree(path, bridge.tree_to_file_layout(dev_params))
+
+
+def load_deploy_params(path: str, device: DeviceLike = None) -> Dict:
+    """The params of ``deploy_params.msgpack`` as the port's tensors on
+    ``device`` (``None`` means CUDA), at the file's dtype; conv kernels
+    channels_last on CUDA, as :func:`make_split_inference_fn` makes
+    them."""
+    from dcfp_tpu_torch.utils import checkpoint as ckpt
+    dev = resolve_device(device)
+    params, _ = bridge.params_from_numpy(ckpt.load_pytree(path), {}, dev)
+    if dev.type == "cuda":
+        params = {n: {k: (v.contiguous(memory_format=torch.channels_last)
+                          if v.dim() == 4 else v) for k, v in d.items()}
+                  for n, d in params.items()}
+    return params
 
 
 # ---------------------------------------------------------------------------

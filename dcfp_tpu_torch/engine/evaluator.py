@@ -20,7 +20,7 @@ inference, confusion-matrix metrics, boundary IoU, FPS (port of
 
 Arrays come in as NHWC numpy, as in the JAX package.  The ``mesh``
 Predictor (data / spatial sharding) and the cross-process confusion
-reduce are not ported yet (ROADMAP.md queue 1, item 7); the
+reduce are not ported yet (ROADMAP.md queue 1, item 5); the
 ``use_aot_*`` hooks take any callable ``run(params, image)``.
 """
 
@@ -47,7 +47,7 @@ from dcfp_tpu_torch.utils.profiling import sync
 
 log = get_logger()
 
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 7)"
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 5)"
 
 
 # ---------------------------------------------------------------------------

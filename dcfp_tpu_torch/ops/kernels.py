@@ -99,18 +99,37 @@ def resize_argmax_cm(logits_cm: torch.Tensor, out_hw,
     such as 19 channels of 20000 columns to 8) raises ValueError from
     :func:`resize_argmax_plan`."""
     _check(logits_cm, logits_cm.shape[1])
-    if logits_cm.device.type == "cpu":
-        return resize_argmax_plain(logits_cm.permute(0, 2, 3, 1), out_hw,
-                                   align_corners)
-    if logits_cm.device.type != "cuda":
+    if logits_cm.device.type not in ("cpu", "cuda"):
         raise ValueError(f"resize_argmax: no kernel for device "
                          f"{logits_cm.device}")
+    return torch.ops.dcfp_tpu_torch.resize_argmax_cm(
+        logits_cm, int(out_hw[0]), int(out_hw[1]), bool(align_corners))
+
+
+# K1 as a registered operator, so that ``torch.export`` records it in the
+# deploy tail as one node: the CPU kernel is the plain version, the CUDA
+# kernel the hand-written one, and the fake kernel gives the label shape.
+@torch.library.custom_op("dcfp_tpu_torch::resize_argmax_cm", mutates_args=(),
+                         device_types=("cpu",))
+def _resize_argmax_op(logits_cm: torch.Tensor, out_h: int, out_w: int,
+                      align_corners: bool) -> torch.Tensor:
+    return resize_argmax_plain(logits_cm.permute(0, 2, 3, 1),
+                               (out_h, out_w), align_corners)
+
+
+@_resize_argmax_op.register_kernel("cuda")
+def _resize_argmax_cuda(logits_cm, out_h, out_w, align_corners):
     if not (logits_cm.is_contiguous() or logits_cm.is_contiguous(
             memory_format=torch.channels_last)):
         raise ValueError("resize_argmax_cm: logits must be contiguous "
                          "(N, C, h, w), or channels_last")
-    return _launch(logits_cm, (int(out_hw[0]), int(out_hw[1])),
-                   bool(align_corners))
+    return _launch(logits_cm, (out_h, out_w), align_corners)
+
+
+@_resize_argmax_op.register_fake
+def _resize_argmax_fake(logits_cm, out_h, out_w, align_corners):
+    return logits_cm.new_empty((logits_cm.shape[0], out_h, out_w),
+                               dtype=torch.uint8)
 
 
 @functools.lru_cache(maxsize=64)

@@ -43,16 +43,27 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool,
     return mat.astype(dtype)
 
 
-@functools.lru_cache(maxsize=256)
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device) -> torch.Tensor:
     """:func:`_interp_matrix` as a float32 tensor on ``device`` (cached;
-    callers must not write to it).  Made outside inference mode, so a
-    matrix first cached by the deploy path can still be saved by
-    autograd in a train step."""
+    callers must not write to it).  While ``torch.export`` or another
+    fake-tensor trace runs, the matrix is made anew and not cached: the
+    trace would otherwise leave a fake tensor in the cache for every
+    later caller."""
+    if torch._guards.detect_fake_mode() is not None:
+        return _make_interp_tensor(in_size, out_size, align_corners, device)
+    return _cached_interp_tensor(in_size, out_size, align_corners, device)
+
+
+def _make_interp_tensor(in_size, out_size, align_corners, device):
+    """Made outside inference mode, so a matrix first cached by the
+    deploy path can still be saved by autograd in a train step."""
     with torch.inference_mode(False):
         return torch.from_numpy(
             _interp_matrix(in_size, out_size, align_corners)).to(device)
+
+
+_cached_interp_tensor = functools.lru_cache(maxsize=256)(_make_interp_tensor)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False

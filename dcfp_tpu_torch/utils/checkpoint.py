@@ -19,7 +19,11 @@ kernels, written here without flax (``msgpack_serialize`` follows
 ``flax/serialization.py`` byte for byte): dict keys sorted, sequences as
 ``{"0": ...}`` dicts, arrays as msgpack ext type 1 with the payload
 ``packb((shape, dtype.name, bytes))``, numpy scalars as ext type 3, and
-arrays above ``MAX_CHUNK_SIZE`` bytes chunked.  The port's tensors cross
+arrays above ``MAX_CHUNK_SIZE`` bytes chunked.  A bfloat16 leaf is packed
+as flax packs one, ``(shape, "bfloat16", its 2-byte words)``, and a
+``"bfloat16"`` record is read back into a ``torch.bfloat16`` tensor, bit
+for bit: numpy has no bfloat16 without ``ml_dtypes``, which the port does
+not use.  The port's tensors cross
 ``dcfp_tpu_torch.bridge`` on the way (OIHW <-> HWIO).  Writes are atomic
 (tmp + rename) so a preempted job never leaves a truncated snapshot.
 ``msgpack`` is imported where it is used, never at module level.
@@ -48,15 +52,35 @@ _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 # flax's msgpack encoding
 # ---------------------------------------------------------------------------
 
+class Bf16Words:
+    """A bfloat16 leaf on its way to a file: its shape and its 2-byte
+    words (uint16, C order), which numpy can hold without ``ml_dtypes``."""
+
+    def __init__(self, t: torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        self.shape = tuple(t.shape)
+        self.words = t.view(torch.int16).numpy().view(np.uint16)
+
+    @property
+    def nbytes(self) -> int:
+        return self.words.nbytes
+
+
 def _leaf_np(x):
+    """A leaf as the file holds it: numpy, or :class:`Bf16Words` for a
+    bfloat16 tensor (kept at its width, as the JAX package keeps it)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        if x.dtype == torch.bfloat16:
+            return Bf16Words(x)
+        return x.detach().cpu().numpy()
     return x
 
 
-def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+def _ndarray_to_bytes(arr) -> bytes:
     import msgpack
+    if isinstance(arr, Bf16Words):
+        tpl = (arr.shape, "bfloat16", arr.words.tobytes("C"))
+        return msgpack.packb(tpl, use_bin_type=True)
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("Object and structured dtypes not supported "
                          "for serialization of ndarrays.")
@@ -66,7 +90,7 @@ def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
 
 def _ext_pack(x):
     import msgpack
-    if isinstance(x, np.ndarray):
+    if isinstance(x, (np.ndarray, Bf16Words)):
         return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
     if isinstance(x, np.generic):
         return msgpack.ExtType(_EXT_NPSCALAR,
@@ -74,9 +98,14 @@ def _ext_pack(x):
     return x
 
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+def _ndarray_from_bytes(data: bytes):
+    """A packed array: numpy (a read-only view of the buffer), or a
+    ``torch.bfloat16`` tensor for a ``"bfloat16"`` record."""
     import msgpack
     shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        words = np.frombuffer(buffer, dtype=np.int16).reshape(shape)
+        return torch.from_numpy(words.copy()).view(torch.bfloat16)
     return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()),
                          count=-1, offset=0).reshape(shape, order="C")
 
@@ -115,15 +144,22 @@ def _chunk_leaves(d):
     """flax's ``_chunk_array_leaves_in_place``: dict values and the root."""
     if isinstance(d, dict):
         for k, v in d.items():
-            if isinstance(v, np.ndarray):
-                if v.size * v.dtype.itemsize > MAX_CHUNK_SIZE:
-                    d[k] = _chunk(v)
+            if isinstance(v, (np.ndarray, Bf16Words)):
+                d[k] = _chunk_leaf(v)
             elif isinstance(v, dict):
                 _chunk_leaves(v)
-    elif isinstance(d, np.ndarray):
-        if d.size * d.dtype.itemsize > MAX_CHUNK_SIZE:
-            return _chunk(d)
+    elif isinstance(d, (np.ndarray, Bf16Words)):
+        return _chunk_leaf(d)
     return d
+
+
+def _chunk_leaf(v):
+    if v.nbytes <= MAX_CHUNK_SIZE:
+        return v
+    if isinstance(v, Bf16Words):
+        raise ValueError(f"a bfloat16 leaf of {v.nbytes} bytes would need "
+                         "flax's chunking, which is not written for it")
+    return _chunk(v)
 
 
 def _unchunk_leaves(d):
@@ -169,7 +205,8 @@ def to_state_dict(tree):
         return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
     if tree is None:
         return None
-    return np.asarray(_leaf_np(tree))
+    leaf = _leaf_np(tree)
+    return leaf if isinstance(leaf, Bf16Words) else np.asarray(leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +366,8 @@ def _flat(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flat(v, f"{prefix}{k}/"))
+    elif isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        out[prefix.rstrip("/")] = tree  # a bfloat16 leaf of a file
     elif tree is not None:
         out[prefix.rstrip("/")] = np.asarray(_leaf_np(tree))
     return out

@@ -503,7 +503,7 @@ def test_not_ported_parts_raise(monkeypatch):
     """The mesh Predictor and the cross-process confusion reduce raise
     instead of running on one device or returning local counts."""
     pair = Pair("pointwise")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=object(),
                       device="cpu")
     cm = np.eye(C)
@@ -512,7 +512,7 @@ def test_not_ported_parts_raise(monkeypatch):
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tev.allreduce_confusion(cm)
 
 

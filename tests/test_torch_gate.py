@@ -62,7 +62,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dcfp_tpu)(?:\.|\s|$)",
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "pair_times.py", "k3_parts.py", "k46_parts.py",
-       "train_probe.py"]))
+       "train_probe.py", "bench_torch.py"]))
 def test_source_has_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not _IMPORT.findall(src), f"{path} imports {_IMPORT.findall(src)}"
@@ -166,3 +166,36 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(*args)
         fn(*args, device="cpu")
+
+
+def test_entry_point_scripts_default_to_cuda(monkeypatch, tmp_path):
+    """The CLIs' ``main`` and ``bench_torch.main`` run on the card unless
+    ``DCFP_PLATFORM=cpu``: with CUDA absent they raise before writing
+    anything.  (``cli.label_index`` does host work only.)"""
+    import importlib.util
+
+    from dcfp_tpu_torch.cli import (deploy, evaluate, evaluate_test, prune,
+                                    train)
+
+    monkeypatch.delenv("DCFP_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    missing = str(tmp_path / "missing.msgpack")
+    spec = importlib.util.spec_from_file_location("bench_torch",
+                                                  REPO / "bench_torch.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    calls = [
+        (train.main, ["--snapshot-dir", str(out)]),
+        (prune.main, ["--model-path", missing, "--score-path", missing,
+                      "--save-path", str(out)]),
+        (evaluate.main, ["--restore-from", missing,
+                         "--result-file", str(out / "result.txt")]),
+        (evaluate_test.main, ["--restore-from", missing,
+                              "--output-dir", str(out)]),
+        (deploy.main, ["--save-dir", str(out)]),
+        (lambda argv: bench.main(), [])]
+    for fn, argv in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(argv)
+        assert not out.exists()

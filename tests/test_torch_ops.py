@@ -107,3 +107,21 @@ def test_global_avg_pool(rng):
     got = tpool.global_avg_pool(_nchw(x))
     assert got.shape == (2, 4, 1, 1)
     np.testing.assert_allclose(_nhwc(got), want, rtol=0, atol=1e-6)
+
+
+def test_resize_under_export_caches_no_fake_tensor(rng):
+    """``torch.export`` traces with fake tensors: the interpolation
+    matrices it makes stay out of the cache, and an eager call after the
+    trace gets real ones and the exported program's result."""
+    class Resize(torch.nn.Module):
+        def forward(self, x):
+            return tresize.resize_bilinear_cf(x, (9, 11), True)
+
+    x = torch.from_numpy(rng.standard_normal((1, 2, 4, 5)).astype(np.float32))
+    tresize._cached_interp_tensor.cache_clear()
+    with torch.no_grad():
+        exported = torch.export.export(Resize(), (x,), strict=False)
+    assert tresize._cached_interp_tensor.cache_info().currsize == 0
+    want = Resize()(x)
+    assert type(tresize._interp_tensor(4, 9, True, x.device)) is torch.Tensor
+    assert torch.equal(exported.module()(x), want)

@@ -772,7 +772,7 @@ def test_train_step_after_inference(rng):
     model = tiny_resize_model(TBuilder, TSegModel)
     params, state = np_params(model.graph, 0)
     tp, ts = bridge.params_from_numpy(params, state, device=CPU)
-    resize._interp_tensor.cache_clear()
+    resize._cached_interp_tensor.cache_clear()
     fn, dev_p = make_inference_fn(model.graph, tp, ts, device=CPU,
                                   dtype=torch.float32, output="logits")
     fn(dev_p, torch.zeros(2, 16, 16, 3))
