@@ -89,9 +89,18 @@ exits non-zero without them.  Phases, each of which raises on failure:
     to the jit path's, the bf16 artifact's and both captured forms'
     labels against the jit path's; then ``bench_torch.py`` in a child
     process, its JSON line parsed and held; one ``{"cli": ...}`` line;
-11. one JSON line with every ported kernel: launches on its path, its
+11. data parallel across processes (``phase_dist``): 2 ranks of the
+    flagship R50 (NCCL on two cards, else both over gloo on the one
+    card), GSRL + EIC + SGD with dropout at a global batch of 4 x 769^2:
+    step 1 (TF32 off) against one process's step on the global batch by
+    PR 9's self-noise rule, the ranks' params bit-equal, 3 steps timed
+    with TF32 on in the ranks and in one process; the bf16 deploy eval
+    of 8 seeded 1024x2048 frames split over the ranks, its summed
+    confusion equal to one process's, K1 once a frame on each rank; one
+    ``{"dist": ...}`` line;
+12. one JSON line with every ported kernel: launches on its path, its
     check, its time beside its bound, plain and library times;
-12. last line: ``{"ok": true, "device": {...}}``.
+13. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -99,6 +108,7 @@ import dataclasses
 import itertools
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -197,15 +207,19 @@ def graph_ms(fn, reps=20, iters=10):
 # 1. device
 # ---------------------------------------------------------------------------
 
+def _card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this test needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)  # name, power limit
+    log(_card_line())
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     # f32 comparisons below need full f32 convolutions and matmuls
@@ -2774,10 +2788,7 @@ def phase_data():
     launch none of K1-K6, the eval K1 once an image.  Prints one
     ``{"data": ...}`` line."""
     t_phase = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _card_line()
     workers = min(8, os.cpu_count() or 1)
     stall = os.environ.get("DCFP_DECODE_STALL_TIMEOUT")
     os.environ["DCFP_DECODE_STALL_TIMEOUT"] = DATA_STALL_S
@@ -3207,6 +3218,453 @@ def phase_cli(device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# 11. data parallel across processes
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_BATCH = 4  # global: 2 images a rank
+DIST_HW = 769
+DIST_STEPS = 3  # timed, TF32 on, after the compared step (TF32 off)
+DIST_FRAMES = 8  # the deploy eval's frames, split over the ranks
+DIST_TIMEOUT_S = 300  # a collective's wait, and the ranks' whole run
+
+
+def _dist_setup(cfg):
+    """The flagship, its seeded params (on the CPU), the GSRL criterion
+    and the global batch of phase_dist, the same in every process."""
+    model = build_model("deeplabv3", **FLAGSHIP_CFG)
+    params, state = init_graph(model.graph, torch.Generator().manual_seed(0),
+                               device="cpu")
+    crit = build_criterions("gsrl", ignore_label=255,
+                            loss_para={"ds_weight": 0.4})
+    batch = _train_batch(np.random.default_rng(11), cfg["batch"], cfg["hw"],
+                         compact=False)
+    return model, params, state, crit, batch
+
+
+def _dist_optimizer():
+    return build_optimizer(optim="sgd", learning_rate=0.01, momentum=0.9,
+                           weight_decay=5e-4, num_steps=100, warmup=-1)
+
+
+def _dist_steps(model, crit, state0, batches, device, keep_first=True):
+    """``len(batches)`` train steps from ``state0`` with dropout from a
+    generator seeded 3 on ``device``: (state after step 1 as numpy trees,
+    final state, losses, grad norms, step ms)."""
+    step = make_train_step(model, crit, _dist_optimizer(), device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    st, first, losses, norms, ms = state0, None, [], [], []
+    for b in batches:
+        profiling.sync(st.params)
+        t0 = time.perf_counter()
+        st, m = step(st, b, gen)
+        profiling.sync(st.params)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if first is None and keep_first:
+            p, s = params_to_numpy(st.params, st.bn_state)
+            first = (p, s, eic_to_numpy(st.eic))
+    return first, st, losses, norms, ms
+
+
+def _tree_digest(*trees):
+    """sha256 of the tensors of ``{name: {key: tensor}}`` or ``{name:
+    tensor}`` trees, in sorted order."""
+    import hashlib
+    h = hashlib.sha256()
+    for tree in trees:
+        for n in sorted(tree):
+            leaves = tree[n] if isinstance(tree[n], dict) else {"": tree[n]}
+            for k in sorted(leaves):
+                h.update(leaves[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_eval_setup(cfg):
+    graph = build_model("deeplabv3", **EVAL_CFG).graph
+    params, state = init_graph(graph, torch.Generator().manual_seed(0),
+                               device="cpu")
+    params["last_conv.6"]["bias"].zero_()
+    classic, _ = _eval_items(cfg["frames"], cfg["eval_hw"], seed=7)
+    return graph, params, state, classic
+
+
+_DIST_EVAL_KW = dict(num_classes=19, whole=True, align_corner=True,
+                     fps_warmup=1, pipeline=True)
+
+
+def _dist_rank(rank, port, backend, out_dir, cfg):
+    """One rank of phase_dist (a spawned process): join the group, one
+    train step on this rank's half of the global batch with TF32 off
+    (compared), ``steps`` more with cuDNN's TF32 on (PyTorch's default,
+    timed), then this rank's stride of the deploy eval.  Writes
+    ``rank<r>.json`` (and rank 0 its step-1 trees to ``step1.pt``)."""
+    import datetime
+
+    from dcfp_tpu_torch.parallel import distributed
+    from dcfp_tpu_torch.parallel.mesh import create_mesh, replicate_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", DIST_WORLD, rank,
+                           backend=backend, device=cfg["device"],
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    mesh = create_mesh(device=cfg["device"])
+    dev = mesh.device
+    model, params, state, crit, batch = _dist_setup(cfg)
+    n = cfg["batch"] // DIST_WORLD
+    mine = {"img": batch["img"][rank * n:(rank + 1) * n],
+            "label": {k: v[rank * n:(rank + 1) * n]
+                      for k, v in batch["label"].items()}}
+    st = replicate_tree(mesh, create_train_state(
+        model, params, state, _dist_optimizer(), prune_type="dcfp",
+        device=dev))
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    first, st, losses, norms, ms_off = _dist_steps(
+        model, crit, st, [mine], dev, keep_first=rank == 0)
+    torch.backends.cudnn.allow_tf32 = True
+    _, st, losses_on, _, ms = _dist_steps(
+        model, crit, st, [mine] * cfg["steps"], dev, keep_first=False)
+    torch.backends.cudnn.allow_tf32 = False
+    train_launches = dict(kernels.LAUNCHES)
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "step1.pt"))
+    digest = _tree_digest(st.params, st.bn_state, st.eic)
+    del st
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    graph, eparams, estate, classic = _dist_eval_setup(cfg)
+    pred = Predictor(graph, eparams, estate, dtype=torch.bfloat16,
+                     align_corner=True, mesh=mesh, shard="data")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = evaluate(pred, classic[rank::DIST_WORLD], **_DIST_EVAL_KW)
+    eval_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "device": str(dev),
+                   "losses": losses, "grad_norms": norms,
+                   "step_ms_tf32_off": ms_off, "losses_tf32": losses_on,
+                   "step_ms": ms, "eval_fps": res["fps"],
+                   "train_launches": train_launches,
+                   "params_sha256": digest,
+                   "eval_frames": len(classic[rank::DIST_WORLD]),
+                   "eval_s": eval_s,
+                   "eval_k1_launches": kernels.LAUNCHES["resize_argmax"],
+                   "eval_other_launches": {
+                       k: v for k, v in kernels.LAUNCHES.items()
+                       if k != "resize_argmax"},
+                   "confusion": res["confusion"].astype(np.int64).tolist()},
+                  f)
+
+
+def _dist_eval_one(_, out_dir, cfg):
+    """phase_dist's one-process eval, in a fresh process (no group) like
+    the ranks: the parent may hold autotuned cuDNN plans for these convs
+    (``phase_eval`` makes them), and PyTorch keeps a conv's first plan,
+    so its algorithms, and bf16 near-ties, could differ from the ranks'.
+    Writes ``one.json``."""
+    graph, params, state, classic = _dist_eval_setup(cfg)
+    pred = Predictor(graph, params, state, dtype=torch.bfloat16,
+                     align_corner=True, device=cfg["device"])
+    res = evaluate(pred, classic, **_DIST_EVAL_KW)
+    with open(os.path.join(out_dir, "one.json"), "w") as f:
+        json.dump({"fps": res["fps"], "k1": kernels.LAUNCHES["resize_argmax"],
+                   "confusion": res["confusion"].astype(np.int64).tolist()},
+                  f)
+
+
+def _spawn(fn, nprocs, args):
+    """``fn(i, *args)`` in ``nprocs`` spawned processes, all joined; a
+    failure raises here, and so does outliving ``DIST_TIMEOUT_S``."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"dist: {fn.__name__} outlived "
+                                 f"{DIST_TIMEOUT_S} s")
+
+
+def phase_dist(device="cuda", hw=DIST_HW, frames=DIST_FRAMES,
+               eval_hw=EVAL_HW):
+    """Data parallel across processes on the flagship R50 at full width:
+    2 ranks (NCCL, one card each, where the machine has 2 or more cards;
+    else both over gloo on the one card, since NCCL refuses two ranks on
+    one device), GSRL + EIC + SGD with dropout, a global batch of 4 x
+    769^2 (2 a rank): one step in f32 with TF32 off, compared, then 3
+    timed with cuDNN's TF32 on (PyTorch's default; the first pays
+    cuDNN's plans), in the ranks and in one process.  Held: step 1's
+    loss, params, BN statistics and EIC against one process's step on
+    the global batch, by PR 9's self-noise rule (the one-process step on
+    the image x (1 + 2^-22) gives the noise); both ranks' params, BN
+    statistics and EIC bit-equal after the last step; then the bf16
+    deploy eval of 8 seeded 1024x2048 frames split over the ranks
+    (pipelined, K1 on each rank's label path): the summed confusion
+    equal to one fresh process's over all 8, K1 launched once a frame on each
+    rank, nothing else launched on either path.  Prints one ``{"dist":
+    ...}`` line.  ``device="cpu"`` with smaller sizes dry-runs it on the
+    CPU (gloo)."""
+    t_phase = time.perf_counter()
+    cfg = dict(device=device, hw=hw, batch=DIST_BATCH, steps=DIST_STEPS,
+               frames=frames, eval_hw=eval_hw)
+    cuda = device == "cuda"
+    card = _card_line() if cuda else "cpu"
+    cards = torch.cuda.device_count() if cuda else 0
+    backend = "nccl" if cards >= DIST_WORLD else "gloo"
+    log(f"[dist] {cards} card(s) visible: {DIST_WORLD} ranks over {backend}"
+        + ("" if backend == "nccl" or not cuda else
+           ", both on the one card (NCCL refuses two ranks on one device; "
+           "collectives go through host copies)") + f"; {card}")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = (cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(_dist_rank, DIST_WORLD, (port, backend, tmp, cfg))
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(DIST_WORLD)]
+        got_p, got_s, got_e = torch.load(os.path.join(tmp, "step1.pt"),
+                                         weights_only=False)
+        try:
+            cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = \
+                (False,) * 3
+            model, params, state, crit, batch = _dist_setup(cfg)
+            np_p, _ = params_to_numpy(params, state)
+            nudged = dict(batch,
+                          img=batch["img"] * np.float32(1 + 2.0 ** -22))
+
+            def one(b, steps):
+                st = create_train_state(model, params, state,
+                                        _dist_optimizer(), prune_type="dcfp",
+                                        device=device)
+                return _dist_steps(model, crit, st, [b] * steps, device)
+
+            (ref_p, ref_s, ref_e), ref_st, ref_losses, _, ref_ms_off = one(
+                batch, 1)
+            (noise_p, _, noise_e), _, _, _, _ = one(nudged, 1)
+            cudnn.allow_tf32 = True
+            _, _, ref_losses_on, _, ref_ms = _dist_steps(
+                model, crit, ref_st, [batch] * cfg["steps"], device,
+                keep_first=False)
+            del ref_st
+        finally:
+            cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = flags
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _spawn(_dist_eval_one, 1, (tmp, cfg))
+        one_s = time.perf_counter() - t0
+        one_res = json.load(open(os.path.join(tmp, "one.json")))
+    one_cm = np.asarray(one_res["confusion"])
+    loss_rel = abs(ranks[0]["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+    bn_worst = max(float(np.abs(got_s[b][k] - ref_s[b][k]).max()
+                         / np.abs(ref_s[b][k]).max())
+                   for b in ref_s for k in ref_s[b])
+    err, cos, rmin, rmax, worst = _update_agreement(got_p, ref_p, np_p)
+    noise_err = _update_agreement(noise_p, ref_p, np_p)[0]
+    eic_err = _vec_rel_l2(got_e, ref_e)
+    eic_noise = _vec_rel_l2(noise_e, ref_e)
+    bit_equal = len({r["params_sha256"] for r in ranks}) == 1
+    cms = [np.asarray(r["confusion"]) for r in ranks]
+    cm_equal = all(np.array_equal(c, one_cm) for c in cms)
+    k1 = [r["eval_k1_launches"] for r in ranks]
+    result = {
+        "card": card, "cards_visible": cards, "backend": backend,
+        "world": DIST_WORLD,
+        "model": "deeplabv3-resnet50 os8 mg[1,2,4] stem128 19 classes, "
+                 "deepsup, GSRL+EIC+SGD, dropout on",
+        "global_batch": [DIST_BATCH, hw, hw],
+        "eval_frames_hw": [frames, *eval_hw],
+        "rank_step_ms_tf32": [r["step_ms"] for r in ranks],
+        "one_process_step_ms_tf32": ref_ms,
+        "rank_step_ms_median_tf32": float(np.median(
+            [v for r in ranks for v in r["step_ms"][1:]])),
+        "one_process_step_ms_median_tf32": float(np.median(ref_ms[1:])),
+        "rank_step1_ms_tf32_off": [r["step_ms_tf32_off"] for r in ranks],
+        "one_process_step1_ms_tf32_off": ref_ms_off,
+        "losses_2_ranks_tf32": ranks[0]["losses_tf32"],
+        "losses_1_process_tf32": ref_losses_on,
+        "step1_loss_2_ranks": ranks[0]["losses"][0],
+        "step1_loss_1_process": ref_losses[0],
+        "step1_loss_rel_err": loss_rel,
+        "step1_bn_stats_max_err_rel_to_max": bn_worst,
+        "step1_update_rel_l2": err,
+        "one_process_self_noise_update_rel_l2": noise_err,
+        "step1_update_min_cos": cos,
+        "step1_update_norm_ratio": [rmin, rmax],
+        "step1_update_max_err_rel_to_max_update": worst,
+        "step1_eic_rel_l2": eic_err,
+        "one_process_self_noise_eic_rel_l2": eic_noise,
+        "ranks_params_bit_equal": bit_equal,
+        "params_sha256": [r["params_sha256"][:16] for r in ranks],
+        "train_launches": [r["train_launches"] for r in ranks],
+        "eval_frames": [r["eval_frames"] for r in ranks],
+        "eval_s": [r["eval_s"] for r in ranks],
+        "eval_img_per_s_after_1": [r["eval_fps"] for r in ranks],
+        "one_process_eval_img_per_s_after_1": one_res["fps"],
+        "one_process_eval_k1_launches": one_res["k1"],
+        "one_process_eval_s": one_s,
+        "eval_k1_launches_per_rank": k1,
+        "eval_confusion_equal_one_process": cm_equal,
+        "eval_valid_pixels": int(one_cm.sum()),
+        "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"dist": result}), flush=True)
+    if not (loss_rel <= 1e-4 and bn_worst <= 1e-3
+            and err <= min(2 * noise_err, 0.1) and cos >= 0.99
+            and 0.95 <= rmin and rmax <= 1.05 and eic_err <= 2 * eic_noise):
+        raise AssertionError("dist: 2 ranks differ from one process")
+    if not bit_equal:
+        raise AssertionError("dist: the ranks' params differ")
+    if not cm_equal:
+        raise AssertionError("dist: the sharded eval's confusion differs")
+    if cuda and any(v != f for v, f in zip(k1, result["eval_frames"])):
+        raise AssertionError(f"dist: K1 launches {k1}")  # CPU: plain tail
+    if any(any(r["train_launches"].values()) or
+           any(r["eval_other_launches"].values()) for r in ranks):
+        raise AssertionError("dist: a kernel other than K1 was launched")
+    return result
+
+
+def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None):
+    """The scripts' train and evaluate commands unchanged over every
+    visible card, through the CLIs' ``main`` in this process: pretrain
+    with OHEM + EIC (``--num-devices -1``: the CLI starts one worker per
+    card), 3 steps at 2 images a card, then the bf16 pipelined eval of
+    its snapshot with ``--eval-shard data`` (one worker a card) and in
+    one process.  Holds every rc 0, the snapshot and the EIC scores
+    written once, and the two result files equal but for the FPS.
+    Prints one ``{"dist_cli": ...}`` line.  Not part of ``main`` (it
+    needs 2 or more cards to mean anything):
+    ``python3 -c 'import chip_smoke as cs; cs.phase_device();
+    cs.phase_build(); cs.dist_cli()'``; ``device="cpu"`` with
+    ``cards=4`` and small sizes runs it over 4 gloo processes."""
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    cards = cards or torch.cuda.device_count()
+    card = _card_line() if cuda else "cpu"
+    log(f"[dist_cli] {cards} card(s); {card}")
+    env_keys = ("DCFP_CS_ROOT", "DCFP_CS_TRAIN_LIST", "DCFP_CS_VAL_LIST",
+                "DCFP_PLATFORM")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    times, launches = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fx, _ = data_fixture(os.path.join(tmp, "cs"), hw=hw, n=8)
+            os.environ.update(DCFP_CS_ROOT=fx["root"],
+                              DCFP_CS_TRAIN_LIST=fx["train"],
+                              DCFP_CS_VAL_LIST=fx["val_distinct"])
+            os.environ.pop("DCFP_PLATFORM", None)
+            if not cuda:
+                os.environ["DCFP_PLATFORM"] = "cpu"
+            snap = os.path.join(tmp, "pretrain")
+            _run_cli("train", CLI_MODEL + [
+                "--input-size", crop, "--batch-size", str(2 * cards),
+                "--random-seed", "42", "--random-mirror", "--loss-type",
+                "ohem", "--loss-para", '{"ds_weight":0.4}', "--prune-type",
+                "dcfp", "--num-steps", "3", "--save-pred-every", "3",
+                "--log-every", "1", "--num-workers", "2", "--num-devices",
+                "-1" if cuda else str(cards), "--snapshot-dir", snap],
+                times, launches)
+            written = sorted(os.listdir(snap))
+            if written != ["CS_scenes_3.msgpack", "score.msgpack"]:
+                raise AssertionError(f"dist_cli: the snapshot dir holds "
+                                     f"{written}")
+            results = {}
+            for shard in ("data", "none"):
+                results[shard] = os.path.join(tmp, f"result_{shard}.txt")
+                _run_cli(f"evaluate:{shard}", CLI_MODEL + [
+                    "--data-dir", "val", "--restore-from",
+                    os.path.join(snap, "CS_scenes_3.msgpack"),
+                    "--whole", "true", "--dtype", "bfloat16", "--pipeline",
+                    "true", "--num-workers", "2", "--eval-shard", shard,
+                    "--num-devices", "0" if cuda else str(cards),
+                    "--result-file", results[shard]], times, launches)
+            texts = {}
+            for shard, path in results.items():
+                with open(path) as f:
+                    text = f.read()
+                if text.count("test with") != 1:
+                    raise AssertionError(f"dist_cli: {path} holds "
+                                         f"{text.count('test with')} results")
+                texts[shard] = text[:text.rindex(" FPS:")]
+            equal = texts["data"] == texts["none"]
+            mean_iu = json.loads(texts["none"].splitlines()[1])["meanIU"]
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    result = {"card": card, "cards": cards, "seconds": times,
+              "snapshot_files": written, "eval_results_equal": equal,
+              "meanIU": mean_iu, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"dist_cli": result}), flush=True)
+    if not equal:
+        raise AssertionError("dist_cli: the sharded eval's result differs")
+    return result
+
+
+def _eval_plan_child(autotune, device="cuda", hw=EVAL_HW):
+    """One process of ``eval_plan_probe``: the bf16 deploy forward of the
+    eval cell's model (labels through K1) on 1 + 4 seeded 1024x2048
+    frames, with cuDNN's autotuning on or off from the process's first
+    conv; each frame's ms, the busiest kernels of one frame; one JSON
+    line."""
+    torch.backends.cudnn.benchmark = autotune
+    graph, params, state, classic = _dist_eval_setup(
+        dict(frames=5, eval_hw=hw))
+    pred = Predictor(graph, params, state, dtype=torch.bfloat16,
+                     align_corner=True, device=device)
+    ph, pw = pad_inf(hw)
+    pad = ((0, 0), (0, ph - hw[0]), (0, pw - hw[1]), (0, 0))
+    ms = []
+    for item in classic:
+        img = pred.device_put(np.pad(item["img"], pad))
+        t0 = time.perf_counter()
+        profiling.sync(pred.predict_whole_labels(img))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiling.sync(pred.predict_whole_labels(img))
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    print(json.dumps({"autotune": autotune, "frame_ms": ms, "top_kernels": [
+        {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+         "calls": e.count} for e in top[:6]]}), flush=True)
+
+
+def eval_plan_probe():
+    """The eval cell's bf16 deploy forward in two fresh processes, one
+    with cuDNN's autotuning off (PyTorch's default, as the evaluate CLI
+    runs) and one with it on (as serving and ``phase_eval`` run): frame
+    ms and the busiest kernels of each.  PyTorch keeps the first plan of
+    a conv configuration, hence a process each.  Not part of ``main``:
+    ``python3 -c 'import chip_smoke as cs; cs.phase_device();
+    cs.phase_build(); cs.eval_plan_probe()'``."""
+    out = {"card": _card_line()}
+    for autotune in (False, True):
+        run = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke as cs; "
+             f"cs._eval_plan_child({autotune})"], capture_output=True,
+            text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"eval_plan_probe: {run.stderr[-3000:]}")
+        out[f"autotune_{autotune}"] = json.loads(
+            run.stdout.strip().splitlines()[-1])
+    print(json.dumps({"eval_plans": out}), flush=True)
+    return out
+
+
 def main():
     phase_device()
     phase_build()
@@ -3228,6 +3686,7 @@ def main():
     eval_result = phase_eval()
     data_result = phase_data()
     cli_result = phase_cli()
+    dist_result = phase_dist()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()
@@ -3247,6 +3706,8 @@ def main():
              launches_on_eval_path=eval_result["deploy"]["k1_launches"],
              launches_on_data_path=data_result["eval"]["k1_launches"],
              launches_on_cli_path=cli_result["k1_launches_on_cli_path"],
+             launches_on_dist_path=sum(
+                 dist_result["eval_k1_launches_per_rank"]),
              **k1_time),
         dict(name="stem_conv3x3_s2", route="cuda",
              source="dcfp_tpu_torch/csrc/stem_conv.cu",

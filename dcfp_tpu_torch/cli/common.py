@@ -3,17 +3,24 @@ groups, with the JAX package's option strings, defaults and choices;
 JSON-para parsing; model/dataset construction; logging setup.  Dispatch
 goes through explicit registries — no ``eval()``.
 
-One process drives one card: the mesh and multi-process flags are
-accepted, as the scripts pass them, and any value that asks for more
-than one device raises ``NotImplementedError`` before a file is
-written.
+One process drives one card, and a job on W cards runs W processes (the
+data axis of the JAX package's mesh is the process axis here,
+``parallel/``).  A job reaches that state three ways: ``torchrun``
+(its environment is read), ``--distributed true`` with ``--coordinator
+host:port --num-processes N --process-id i`` per process, or the scripts'
+unchanged commands, for which the CLI starts one worker process per card
+itself (``launch_workers``).  Spatial sharding (``--spatial-shards`` >
+1) raises ``NotImplementedError`` before a file is written.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import socket
+import sys
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -24,9 +31,6 @@ from dcfp_tpu_torch.models.registry import build_model
 from dcfp_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
-
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 5: distributed)"
-
 
 def str2bool(v: str) -> bool:
     if isinstance(v, bool):
@@ -93,7 +97,7 @@ def add_train_data_args(p: argparse.ArgumentParser):
     p.add_argument("--balance", type=int, default=0,
                    help="0 none | 1 inverse-freq | 2 effective-number")
     p.add_argument("--batch-size", type=int, default=8,
-                   help="GLOBAL batch (one card here)")
+                   help="GLOBAL batch, split evenly over the processes")
 
 
 def add_optim_args(p: argparse.ArgumentParser):
@@ -114,12 +118,14 @@ def add_runtime_args(p: argparse.ArgumentParser):
     p.add_argument("--save-log", action="store_true")
     p.add_argument("--spatial-shards", type=int, default=1,
                    help="mesh 'spatial' axis size (H sharding); only 1 "
-                        "here")
+                        "here (not ported)")
     p.add_argument("--num-devices", type=int, default=-1,
-                   help="limit the mesh to the first N devices; -1 or 1 "
-                        "here (one card)")
+                   help="cards of the job, one process each; -1 = every "
+                        "visible card (on the CPU: N gloo processes, "
+                        "-1 = one)")
     p.add_argument("--dcn-slices", type=int, default=0,
-                   help="multi-slice pods: number of slices; 0 or 1 here")
+                   help="multi-node jobs: number of nodes; validates that "
+                        "the processes divide into them")
     p.add_argument("--compute-dtype", type=str, default="float32",
                    help="float32|bfloat16 activations")
     add_distributed_args(p)
@@ -127,38 +133,105 @@ def add_runtime_args(p: argparse.ArgumentParser):
 
 def add_distributed_args(p: argparse.ArgumentParser):
     """Multi-process runtime flags (the reference's torch.distributed
-    launch, engine.py:38-46); accepted, and ``--distributed true``
-    raises: the port runs one process."""
+    launch, engine.py:38-46)."""
     p.add_argument("--distributed", type=str2bool, default=False,
-                   help="multi-process job (not ported: raises)")
+                   help="join a multi-process job (one process per card)")
     p.add_argument("--coordinator", type=str, default=None,
                    help="coordinator address host:port")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
 
 
-def maybe_initialize_distributed(args) -> None:
-    """No-op unless ``--distributed true``, which raises
-    NotImplementedError: multi-process runs are not ported."""
-    if getattr(args, "distributed", False):
-        raise NotImplementedError(f"--distributed true is {NOT_PORTED}")
+def maybe_initialize_distributed(args, device: torch.device) -> None:
+    """Join the job's process group under ``--distributed true`` or
+    ``torchrun`` (no-op otherwise, and for a job of one process)."""
+    from dcfp_tpu_torch.parallel import distributed
+    if getattr(args, "distributed", False) \
+            or distributed.launched_by_torchrun():
+        distributed.initialize(coordinator_address=args.coordinator,
+                               num_processes=args.num_processes,
+                               process_id=args.process_id, device=device)
 
 
-def require_one_card(args) -> None:
-    """Raise NotImplementedError for mesh flags that ask for more than
-    the one card this port drives (before any file is written)."""
-    if getattr(args, "num_devices", -1) not in (-1, 1):
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: a device mesh is "
-            f"{NOT_PORTED}; use -1 or 1")
+def require_no_spatial(args) -> None:
+    """Raise NotImplementedError, before any file is written, for the
+    spatial axis of the mesh, which the port does not shard yet."""
+    from dcfp_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
     if getattr(args, "spatial_shards", 1) > 1:
         raise NotImplementedError(
-            f"--spatial-shards {args.spatial_shards}: spatial sharding is "
-            f"{NOT_PORTED}")
-    if getattr(args, "dcn_slices", 0) > 1:
-        raise NotImplementedError(
-            f"--dcn-slices {args.dcn_slices}: multi-slice meshes are "
-            f"{NOT_PORTED}")
+            f"--spatial-shards {args.spatial_shards}: {SPATIAL_NOT_PORTED}")
+
+
+def job_world(args, device: torch.device, cards: Optional[int]
+              ) -> Tuple[int, bool]:
+    """(W, start): the processes of this job, and whether this process
+    must start them (``launch_workers``).  Under a launcher (a process
+    group, ``torchrun``, ``--distributed true``) W is the group's and
+    nothing is started.  Otherwise W is ``cards`` (<= 0: every visible
+    card, one on the CPU; None: one).  A job asked for more cards than
+    are visible, or for another count than its launcher started, raises
+    rather than run on fewer."""
+    from dcfp_tpu_torch.parallel import distributed, mesh
+    launched = (mesh.world() > 1 or getattr(args, "distributed", False)
+                or distributed.launched_by_torchrun())
+    if launched:
+        w = mesh.world()
+        if cards is not None and 0 < cards != w:
+            raise ValueError(f"--num-devices {cards} but the job has {w} "
+                             "processes")
+        return w, False
+    if cards is None:
+        return 1, False
+    visible = torch.cuda.device_count() if device.type == "cuda" else None
+    w = cards if cards > 0 else (visible or 1)
+    if visible is not None and w > visible:
+        raise ValueError(f"--num-devices {w}: only {visible} CUDA card(s) "
+                         "are visible")
+    return w, w > 1
+
+
+def make_mesh(args, device: torch.device):
+    """This rank's mesh over every process of the job: the pod mesh's
+    validation of ``--dcn-slices``, then the data axis over the ranks."""
+    from dcfp_tpu_torch.parallel.distributed import create_pod_mesh
+    return create_pod_mesh(n_spatial=getattr(args, "spatial_shards", 1),
+                           dcn_data_parallel=getattr(args, "dcn_slices", 0),
+                           device=device)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _worker(local_rank: int, module: str, argv, world: int,
+            port: int) -> None:
+    """One worker of ``launch_workers``: torchrun's environment for
+    ``local_rank``, then the CLI's ``main(argv)``, which joins the
+    group from it."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    rc = importlib.import_module(module).main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def launch_workers(module: str, argv, world: int) -> int:
+    """Run ``module``'s ``main(argv)`` in ``world`` processes on this
+    host, one per card (rank i on ``cuda:i``; on the CPU, gloo), started
+    with the spawn method over a free localhost port: the scripts'
+    unchanged commands use every card, as the JAX package's do.  Each
+    collective waits at most ``parallel.distributed.DEFAULT_TIMEOUT``;
+    a worker that fails makes the others stop and this call raise."""
+    import torch.multiprocessing as mp
+    argv = sys.argv[1:] if argv is None else list(argv)
+    port = _free_port()
+    log.info("starting %d worker processes (localhost:%d)", world, port)
+    mp.start_processes(_worker, args=(module, argv, world, port),
+                       nprocs=world, join=True, start_method="spawn")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +275,11 @@ def maybe_load_channel_cfg(args):
 
 
 def setup_dirs_and_logging(args) -> None:
+    """The snapshot directory, and ``train.log`` in it under
+    ``--save-log``, written by rank 0 only."""
+    from dcfp_tpu_torch.parallel.mesh import rank
     os.makedirs(args.snapshot_dir, exist_ok=True)
-    if getattr(args, "save_log", False):
+    if getattr(args, "save_log", False) and rank() == 0:
         get_logger(log_file=os.path.join(args.snapshot_dir, "train.log"))
 
 

@@ -5,8 +5,15 @@ PNGs; results appended to ``result.txt``.
 
 ``--use-aot`` serves the artifact of ``cli.deploy`` (``model.pt2``, its
 ``.tail`` and ``deploy_params.msgpack``) through
-``engine.deploy.load_serialized``.  ``--eval-shard`` other than ``none``
-raises NotImplementedError: one card, no mesh.
+``engine.deploy.load_serialized``.
+
+Across processes (``torchrun``, ``--distributed true``, or ``--eval-shard
+data``, for which the CLI starts one process per card itself,
+``--num-devices`` of them, 0 = every visible card) each rank evaluates
+its stride of the split on its own card, the confusion counts are summed
+at the end, and rank 0 writes the result file.  ``--eval-shard
+spatial|both`` and ``--spatial-shards`` > 1 raise NotImplementedError
+before any file is written (ROADMAP.md queue 1, item 7).
 
 Example (Cityscapes single-scale whole-image, scripts/cs/finetune.sh:35,
 module renamed):
@@ -24,13 +31,14 @@ import json
 import os
 
 from dcfp_tpu_torch.cli import platform_device
-from dcfp_tpu_torch.cli.common import (DTYPES, NOT_PORTED, add_data_args,
+from dcfp_tpu_torch.cli.common import (DTYPES, add_data_args,
                                        add_distributed_args, add_model_args,
                                        build_dataset_from_args,
                                        build_model_from_args, init_params,
+                                       job_world, launch_workers, make_mesh,
                                        maybe_initialize_distributed,
                                        maybe_load_channel_cfg, parse_hw,
-                                       str2bool)
+                                       require_no_spatial, str2bool)
 from dcfp_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -78,8 +86,9 @@ def get_parser() -> argparse.ArgumentParser:
                         "resolution val sets run a bounded set of shapes "
                         "(0 = one per distinct shape)")
     p.add_argument("--eval-shard", type=str, default="none",
-                   help="none|data|spatial|both: a forward over a device "
-                        "mesh (not ported: anything but none raises)")
+                   help="none|data|spatial|both: data = one process per "
+                        "card, each on its stride of the split; spatial "
+                        "and both are not ported (they raise)")
     p.add_argument("--num-devices", type=int, default=0,
                    help="devices for --eval-shard (0 = all)")
     p.add_argument("--spatial-shards", type=int, default=1)
@@ -177,12 +186,24 @@ def _load_aot(args, graph, params, bn_state, dtype, normalize, device,
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
-    maybe_initialize_distributed(args)
-    if args.eval_shard != "none":
+    if args.eval_shard in ("spatial", "both"):
+        from dcfp_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
         raise NotImplementedError(
-            f"--eval-shard {args.eval_shard}: a sharded forward is "
-            f"{NOT_PORTED}")
+            f"--eval-shard {args.eval_shard}: {SPATIAL_NOT_PORTED}")
+    if args.eval_shard not in ("none", "data"):
+        raise ValueError(f"--eval-shard {args.eval_shard!r}: none, data, "
+                         "spatial or both")
+    require_no_spatial(args)
     device = platform_device()
+    maybe_initialize_distributed(args, device)
+    # one process unless launched, or asked for a data-sharded eval
+    world, start = job_world(
+        args, device, args.num_devices if args.eval_shard == "data"
+        else None)
+    if start:
+        return launch_workers("dcfp_tpu_torch.cli.evaluate", argv, world)
+    mesh = make_mesh(args, device)
+    device = mesh.device
     from dcfp_tpu_torch.data.loader import EvalLoader
     from dcfp_tpu_torch.engine.evaluator import Predictor, evaluate
     from dcfp_tpu_torch.prune.pruner import apply_channel_cfg
@@ -191,7 +212,11 @@ def main(argv=None) -> int:
     dataset = build_dataset_from_args(args, args.data_dir,
                                       compact=args.compact)
     normalize = ((dataset.mean, dataset.std) if args.compact else None)
+    # each process evaluates its stride of the split; the confusion
+    # counts sum across processes at the end (reference
+    # DistributedSampler + dist.all_reduce, evaluate.py:370-372)
     loader = EvalLoader(dataset, batch_size=args.batch_size,
+                        rank=mesh.rank, world=world,
                         num_workers=args.num_workers)
 
     model = build_model_from_args(args, dataset.num_classes, deepsup=False)
@@ -234,10 +259,12 @@ def main(argv=None) -> int:
                               normalize, device, aot_whole, aot_sliding,
                               aot_ms, scales_chk)
     else:
+        if args.eval_shard == "data":
+            log.info("eval mesh: data over %d process(es)", world)
         predictor = Predictor(graph, params, bn_state, dtype=dtype,
                               bucket_quantum=args.bucket_quantum,
-                              align_corner=args.align_corner,
-                              normalize=normalize, device=device)
+                              align_corner=args.align_corner, mesh=mesh,
+                              normalize=normalize)
 
     scales = [float(s) for s in args.ms.split(",") if s]
     result_file = args.result_file or os.path.join(

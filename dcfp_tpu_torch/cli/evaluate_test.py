@@ -1,7 +1,9 @@
 """Test-split inference for benchmark submission (port of
 ``dcfp_tpu/cli/evaluate_test.py``): no labels — saves raw-id PNGs
 (reverse trainId remap, reference evaluate_test.py:133-150) plus palette
-PNGs for visualization (:151-164).
+PNGs for visualization (:151-164).  Across processes (``torchrun`` or
+``--distributed true``) each rank writes the PNGs of its stride of the
+split.
 
 Example (module renamed):
   python -m dcfp_tpu_torch.cli.evaluate_test --dataset CS --data-dir test \\
@@ -23,6 +25,7 @@ from dcfp_tpu_torch.cli.common import (DTYPES, add_data_args,
                                        add_distributed_args, add_model_args,
                                        build_dataset_from_args,
                                        build_model_from_args, init_params,
+                                       job_world, make_mesh,
                                        maybe_initialize_distributed,
                                        maybe_load_channel_cfg, parse_hw,
                                        str2bool)
@@ -48,8 +51,11 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
-    maybe_initialize_distributed(args)
     device = platform_device()
+    maybe_initialize_distributed(args, device)
+    world, _ = job_world(args, device, None)
+    mesh = make_mesh(args, device)
+    device = mesh.device
     from PIL import Image as PILImage
 
     from dcfp_tpu_torch.data.loader import EvalLoader
@@ -63,7 +69,9 @@ def main(argv=None) -> int:
                                hw).cpu().numpy()
 
     dataset = build_dataset_from_args(args, args.data_dir)
+    # each rank writes the PNGs of its stride of the split
     loader = EvalLoader(dataset, batch_size=args.batch_size,
+                        rank=mesh.rank, world=world,
                         num_workers=args.num_workers)
 
     model = build_model_from_args(args, dataset.num_classes, deepsup=False)

@@ -7,11 +7,16 @@ Finetune:  rebuild at pruned widths from ``--channel-cfg`` and resume the
            pruned weights (reference train.py:200-210), typically with
            ``--loss-type gsrl --balance 2 --resample`` for long-tail.
 
-One process drives one card: host batches go to the device as they
-come, with no mesh.  ``--num-devices`` other than -1/1,
-``--spatial-shards`` > 1 and ``--dcn-slices`` > 1 raise
-NotImplementedError before any file is written.  ``--xla-options`` is
-accepted, as the scripts pass it, and logged as having no counterpart.
+Data parallel over processes, one per card: ``--num-devices`` cards
+(-1: every visible one) run as that many processes, which the CLI starts
+itself unless a launcher did (``torchrun``, ``--distributed true``).
+``--batch-size`` is the GLOBAL batch; each rank loads its stride of the
+epoch permutation, and the step reduces BN moments, losses and gradients
+over the ranks (``engine/trainer.py``).  Rank 0 writes the snapshots,
+the EIC scores and the metrics file.  ``--spatial-shards`` > 1 raises
+NotImplementedError before any file is written (ROADMAP.md queue 1,
+item 7).  ``--xla-options`` is accepted, as the scripts pass it, and
+logged as having no counterpart.
 
 Example (Cityscapes pretrain, scripts/cs/pretrain.sh with the module
 renamed):
@@ -39,10 +44,11 @@ from dcfp_tpu_torch.cli.common import (add_data_args, add_model_args,
                                        add_train_data_args,
                                        build_dataset_from_args,
                                        build_model_from_args, compute_dtype,
-                                       init_params,
+                                       init_params, job_world,
+                                       launch_workers, make_mesh,
                                        maybe_initialize_distributed,
                                        maybe_load_channel_cfg,
-                                       require_one_card,
+                                       require_no_spatial,
                                        setup_dirs_and_logging, str2bool)
 from dcfp_tpu_torch.utils.logger import get_logger
 
@@ -117,37 +123,27 @@ def _resolve_pretrained(args, graph, params, bn_state):
     return params, bn_state
 
 
-def device_batches(loader, device: torch.device):
-    """Host batches -> device batches (drops img_meta).  Compact batches
-    (uint8 img + weight_class vectors, the default) ship as they are —
-    normalization and weight expansion happen inside the train step
+def device_batches(loader, mesh):
+    """This rank's host batches -> its device (drops img_meta).  Compact
+    batches (uint8 img + weight_class vectors, the default) ship as they
+    are — normalization and weight expansion happen inside the train step
     (``engine/trainer.expand_batch``); classic f32 batches are widened
     here first."""
-    def put(x):
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
-
+    from dcfp_tpu_torch.parallel.mesh import shard_batch
     for batch in loader:
-        img = batch["img"]
-        if img.dtype != np.uint8:
-            img = img.astype(np.float32)
-        out = {"img": put(img)}
+        out = {"img": batch["img"]}
+        if batch["img"].dtype != np.uint8:
+            out["img"] = batch["img"].astype(np.float32)
         label = batch["label"]
-        if isinstance(label, dict) and "weight_class" in label:
-            label = {k: put(v) for k, v in label.items()}
-        elif isinstance(label, dict):
-            label = {"ori": put(label["ori"].astype(np.int32)),
-                     "weight": put(label["weight"].astype(np.float32))}
-        elif label.dtype != np.uint8:
-            label = put(label.astype(np.int32))
-        else:
-            label = put(label)
+        if isinstance(label, dict) and "weight_class" not in label:
+            label = {"ori": label["ori"].astype(np.int32),
+                     "weight": label["weight"].astype(np.float32)}
+        elif not isinstance(label, dict) and label.dtype != np.uint8:
+            label = label.astype(np.int32)
         out["label"] = label
         if "pad" in batch:
-            out["pad"] = put(batch["pad"])
-        yield out
+            out["pad"] = batch["pad"]
+        yield shard_batch(mesh, out)
 
 
 def main(argv=None) -> int:
@@ -162,9 +158,18 @@ def main(argv=None) -> int:
         parser.error("--balance 2 (effective-number weights) needs the "
                      "sampled class id, which only --resample true "
                      "provides (reference datasets/Base.py:82)")
-    maybe_initialize_distributed(args)
-    require_one_card(args)
+    require_no_spatial(args)
     device = platform_device()
+    maybe_initialize_distributed(args, device)
+    world, start = job_world(args, device, args.num_devices)
+    # --batch-size is GLOBAL (reference engine.py:81: batch //= world)
+    if args.batch_size % world:
+        parser.error(f"--batch-size {args.batch_size} not divisible by "
+                     f"{world} processes")
+    if start:
+        return launch_workers("dcfp_tpu_torch.cli.train", argv, world)
+    mesh = make_mesh(args, device)
+    device = mesh.device
     if args.xla_options:
         log.info("--xla-options %s: XLA compiler options have no "
                  "counterpart in the PyTorch port; ignored",
@@ -177,13 +182,18 @@ def main(argv=None) -> int:
                                              poly_warmup_schedule)
     from dcfp_tpu_torch.engine.trainer import TrainLoop, create_train_state
     from dcfp_tpu_torch.losses.criteria import build_criterions
+    from dcfp_tpu_torch.parallel.mesh import replicate_tree
     from dcfp_tpu_torch.prune.pruner import apply_channel_cfg
     from dcfp_tpu_torch.utils import checkpoint as ckpt
 
     dataset = build_dataset_from_args(args, "train", resample=args.resample,
                                       compact=args.compact_batches)
-    loader = TrainLoader(dataset, args.batch_size, seed=args.random_seed,
-                         num_workers=args.num_workers)
+    # each process loads its rank's stride of the epoch permutation and
+    # decodes with --num-workers processes
+    loader = TrainLoader(dataset, args.batch_size // world,
+                         seed=args.random_seed,
+                         num_workers=args.num_workers,
+                         rank=mesh.rank, world=world)
 
     criterion = build_criterions(
         args.loss_type, ignore_label=dataset.ignore_label,
@@ -224,9 +234,12 @@ def main(argv=None) -> int:
             state = dataclasses.replace(state, params=p, bn_state=b,
                                         step=start_step)
             log.info("loaded weights from %s", args.resume)
-    log.info("one %s device; batch %d", device, args.batch_size)
+    state = replicate_tree(mesh, state)  # every rank starts from rank 0's
+    log.info("mesh: %d data x %d spatial on %d %s device(s) across %d "
+             "process(es); global batch %d", mesh.n_data, mesh.n_spatial,
+             mesh.size, device.type, world, args.batch_size)
 
-    def snapshot_hook(st, step):
+    def snapshot_hook(st, step):  # TrainLoop calls it on rank 0 only
         path = os.path.join(args.snapshot_dir,
                             f"{args.dataset}_scenes_{step}.msgpack")
         ckpt.save_train_state(path, st, tx)
@@ -241,21 +254,24 @@ def main(argv=None) -> int:
                      compute_dtype=compute_dtype(args),
                      normalize=(dataset.mean, dataset.std),
                      ignore_label=dataset.ignore_label,
-                     # preemption grace: snapshot + clean stop
+                     # preemption grace: snapshot + clean stop; across
+                     # processes the stop is a consensus at log
+                     # boundaries, so no rank leaves mid-collective
                      handle_signals=True,
                      metrics_file=args.metrics_file,
                      remat_segments=args.remat)
 
     host = iter(loader)
     try:
-        state = loop.run(state, device_batches(host, device),
+        state = loop.run(state, device_batches(host, mesh),
                          torch.Generator().manual_seed(args.random_seed),
                          start_step=start_step, device=device)
     finally:
         host.close()
         loader.stop()
 
-    if args.prune_type == "dcfp" and state.eic is not None:
+    if args.prune_type == "dcfp" and state.eic is not None \
+            and mesh.rank == 0:
         score_path = os.path.join(args.snapshot_dir, "score.msgpack")
         ckpt.save_eic(score_path, state.eic)
         log.info("exported EIC scores to %s", score_path)

@@ -18,9 +18,12 @@ inference, confusion-matrix metrics, boundary IoU, FPS (port of
 * ``evaluate_pipelined`` keeps the confusion matrix on the device and
   syncs with the host only every 128 images.
 
-Arrays come in as NHWC numpy, as in the JAX package.  The ``mesh``
-Predictor (data / spatial sharding) and the cross-process confusion
-reduce are not ported yet (ROADMAP.md queue 1, item 5); the
+Arrays come in as NHWC numpy, as in the JAX package.  Across the ranks
+of a data-parallel group (``parallel/mesh.py``) each rank evaluates its
+stride of the split on its own card and the confusion counts are summed
+once, at the end; ``Predictor(mesh=..., shard="data")`` is the rank's own
+Predictor on its device (the data axis is the process axis).  Spatial
+sharding (``shard="spatial"|"both"``) is not ported yet.  The
 ``use_aot_*`` hooks take any callable ``run(params, image)``.
 """
 
@@ -41,13 +44,12 @@ from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.engine.deploy import _to_device, make_split_inference_fn
 from dcfp_tpu_torch.graph.apply import graph_apply
 from dcfp_tpu_torch.ops.resize import resize_bilinear
+from dcfp_tpu_torch.parallel import mesh as pmesh
 from dcfp_tpu_torch.utils.edge import mask_to_boundary_device
 from dcfp_tpu_torch.utils.logger import get_logger
 from dcfp_tpu_torch.utils.profiling import sync
 
 log = get_logger()
-
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 5)"
 
 
 # ---------------------------------------------------------------------------
@@ -151,14 +153,13 @@ def confusion_update_device(cm: torch.Tensor, pred: torch.Tensor,
 
 def allreduce_confusion(cm: np.ndarray) -> np.ndarray:
     """The reference's dist.all_reduce of the confusion matrix
-    (evaluate.py:370-372): the identity in a single process.  Across
-    processes it raises rather than return one process's counts."""
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            f"the cross-process confusion reduce is {_NOT_PORTED}")
-    return cm
+    (evaluate.py:370-372): the counts summed over ranks, exactly (int64),
+    as f64; the identity in a single process."""
+    if pmesh.world() == 1:
+        return cm
+    t = torch.from_numpy(np.asarray(cm).astype(np.int64)).to(
+        pmesh.collective_device())
+    return pmesh.all_reduce_(t).cpu().numpy().astype(np.float64)
 
 
 def _pad_hw(image: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -217,16 +218,23 @@ class Predictor:
       normalized on the device by :meth:`prep_raw`.
     * ``device`` — None means CUDA (raises without it); ``"cpu"`` runs
       on the CPU.
-    ``mesh`` (the JAX package's sharded forward) raises
-    NotImplementedError.
+    * ``mesh`` + ``shard`` — the JAX package's sharded forward.  With
+      ``shard="data"`` the data axis is the process axis: this is the
+      rank's own Predictor on ``mesh.device``, fed its stride of the
+      split.  ``"spatial"`` and ``"both"`` raise NotImplementedError.
     """
 
     def __init__(self, graph, params, state, dtype=torch.float32, *,
                  bucket_quantum: int = 0, align_corner: bool = False,
-                 mesh=None, normalize=None,
+                 mesh=None, shard: str = "data", normalize=None,
                  device: DeviceLike = None):
         if mesh is not None:
-            raise NotImplementedError(f"Predictor(mesh=...) is {_NOT_PORTED}")
+            if shard != "data":
+                raise NotImplementedError(
+                    f"Predictor(shard={shard!r}): "
+                    f"{pmesh.SPATIAL_NOT_PORTED}")
+            if device is None:
+                device = mesh.device
         dev = resolve_device(device)
         self.device = dev
         self.graph = graph
@@ -644,7 +652,7 @@ def _finalize_eval(cm: np.ndarray, fps: float,
     result["confusion"] = cm
     log.info("meanIU=%.4f meanP=%.4f meanR=%.4f FPS=%.2f",
              result["meanIU"], result["meanP"], result["meanR"], fps)
-    if result_file:  # one process: it is rank 0
+    if result_file and pmesh.rank() == 0:  # rank-0 result.txt
         with open(result_file, "a") as f:
             f.write(f"test with {result_tag}\n")
             f.write(json.dumps({"meanIU": result["meanIU"],

@@ -7,10 +7,18 @@ autograd.  The lr is a pure function of the step counter, the EIC EMA
 (train.py:260) checks the losses once per log window, so the loop syncs
 with the card once a window, not once a step.
 
+Across the ranks of a data-parallel group (``parallel/mesh.py``, one
+process per card) a step computes what one process computes on the
+global batch: each rank's loss is its share of the global loss, the
+gradients are summed over ranks in one flat buffer (a sum, not DDP's
+mean, since the shares already add up to the loss), and the EIC, the
+gradient norm and the optimizer read the summed gradients, so params and
+optimizer state stay identical on every rank.  ``TrainLoop`` stops all
+ranks at the same step (a consensus at log boundaries) and snapshots on
+rank 0.
+
 The JAX package's ``compiler_options`` / ``DCFP_XLA_OPTIONS`` pass XLA
-flags to its compiled step; they have no counterpart here.  Only the
-single-process loop is ported: the multi-process stop consensus waits for
-the distributed port.
+flags to its compiled step; they have no counterpart here.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from dcfp_tpu_torch.graph.apply import graph_apply
 from dcfp_tpu_torch.losses.criteria import Criterion
 from dcfp_tpu_torch.models.heads import SegModel
 from dcfp_tpu_torch.ops.resize import resize_bilinear_cf
+from dcfp_tpu_torch.parallel import mesh
 from dcfp_tpu_torch.prune.eic import EicState, eic_update, init_eic
 from dcfp_tpu_torch.utils.logger import get_logger
 
@@ -182,6 +191,9 @@ def make_train_step(model: SegModel, criterion: Criterion,
         loss, new_bn = loss_fn(tree_of(keys, leaves), state.bn_state, img,
                                labels, generator)
         flat = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        loss = loss.detach()
+        if mesh.world() > 1:
+            flat, loss = _sum_over_ranks(list(flat), loss)
         grads = tree_of(keys, flat)
         eic = state.eic
         if eic is not None:
@@ -195,9 +207,23 @@ def make_train_step(model: SegModel, criterion: Criterion,
             opt_state=new_opt, eic=eic)
         gnorm = torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(list(flat))))
-        return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _sum_over_ranks(grads, loss):
+    """The gradients and the loss shares summed over ranks, in ONE
+    collective over a flat f32 buffer: the global batch's gradient and
+    loss, bit-identical on every rank."""
+    buf = torch.cat([g.reshape(-1).float() for g in grads]
+                    + [loss.reshape(1).float()])
+    mesh.all_reduce_(buf)
+    out, off = [], 0
+    for g in grads:
+        out.append(buf[off:off + g.numel()].view(g.shape).to(g.dtype))
+        off += g.numel()
+    return out, buf[off].to(loss.dtype)
 
 
 @dataclasses.dataclass
@@ -209,7 +235,8 @@ class TrainLoop:
     iterator of host batches.  Beyond the reference: a SIGTERM/SIGINT
     handler that finishes the in-flight step, writes a snapshot and
     returns (preemption grace), and an optional JSONL ``metrics_file``
-    with one line per log window.
+    with one line per log window.  Across ranks, only rank 0 calls
+    ``snapshot_hook`` and writes ``metrics_file``.
     """
     model: SegModel
     criterion: Criterion
@@ -241,11 +268,20 @@ class TrainLoop:
             remat_segments=self.remat_segments, device=device)
         interrupted = {"sig": None}
         restore = {}
+        # Across ranks a signal to ONE rank must not make it leave while
+        # its peers wait in the next collective: the ranks agree on the
+        # stop at log boundaries (a MAX over their flags; every rank
+        # reaches the same boundaries), so the stop waits up to
+        # log_every steps.
+        multiproc = mesh.world() > 1
+        lead = mesh.rank() == 0
         if self.handle_signals:
             def _on_signal(signum, frame):
                 interrupted["sig"] = signum
-                log.warning("signal %d: will snapshot and stop after the "
-                            "current step", signum)
+                log.warning("signal %d: will snapshot and stop %s", signum,
+                            "at the next log boundary (multi-process "
+                            "consensus)" if multiproc
+                            else "after the current step")
 
             for s in (signal.SIGTERM, signal.SIGINT):
                 try:
@@ -256,8 +292,8 @@ class TrainLoop:
         t0, last = time.time(), start_step
         # device-resident metrics, fetched once per log window
         pending: list = []
-        metrics_f = open(self.metrics_file, "a") if self.metrics_file \
-            else None
+        metrics_f = open(self.metrics_file, "a") \
+            if self.metrics_file and lead else None
         try:
             for step in range(start_step, self.num_steps):
                 batch = next(batches)
@@ -266,7 +302,8 @@ class TrainLoop:
                                             metrics["grad_norm"].float()]))
                 boundary = ((step + 1) % self.log_every == 0
                             or step + 1 == self.num_steps
-                            or interrupted["sig"] is not None)
+                            or (not multiproc
+                                and interrupted["sig"] is not None))
                 if boundary:
                     fetched = torch.stack(pending).cpu().numpy()  # ONE sync
                     losses = fetched[:, 0]
@@ -296,9 +333,18 @@ class TrainLoop:
                     t0, last = time.time(), step + 1
                     pending = []
                 stop = interrupted["sig"] is not None
+                if multiproc:
+                    # every rank runs the consensus at the same
+                    # boundaries, and no collective elsewhere
+                    if boundary and self.handle_signals:
+                        flag = torch.tensor([float(stop)],
+                                            device=mesh.collective_device())
+                        stop = mesh.all_reduce_(flag, "max").item() > 0
+                    else:
+                        stop = False
                 in_window = (step + 1) >= self.save_steps
                 saved_this_step = False
-                if self.snapshot_hook and (
+                if lead and self.snapshot_hook and (
                         (in_window
                          and (step + 1) % self.save_pred_every == 0)
                         or step + 1 == self.num_steps):
@@ -307,12 +353,13 @@ class TrainLoop:
                 if stop:
                     # don't serialize the same step twice when the signal
                     # lands on a step the save window already snapshotted
-                    if self.snapshot_hook and not saved_this_step:
+                    if lead and self.snapshot_hook \
+                            and not saved_this_step:
                         self.snapshot_hook(state, step + 1)
                     log.warning("stopped at step %d on signal %s; resume "
                                 "with --resume <snapshot> "
                                 "--resume-full-state true", step + 1,
-                                interrupted["sig"])
+                                interrupted["sig"] or "of another rank")
                     break
         finally:
             if metrics_f is not None:

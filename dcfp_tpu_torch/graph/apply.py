@@ -9,7 +9,9 @@ like the JAX package, unless ``channels_first=True``.
 Eval mode uses BN's running statistics and no dropout.  Train mode
 (``train=True``) uses the batch's moments, returns the new running
 statistics, draws dropout from an explicit ``torch.Generator`` and can
-recompute its activations in the backward (``remat_segments``).
+recompute its activations in the backward (``remat_segments``).  Across
+the ranks of a data-parallel group (``parallel/mesh.py``) its BN moments
+and dropout masks are those of the global batch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dcfp_tpu_torch.graph.ir import Graph, Node
 from dcfp_tpu_torch.ops.pool import (adaptive_avg_pool, global_avg_pool,
                                      max_pool)
 from dcfp_tpu_torch.ops.resize import resize_bilinear_cf
+from dcfp_tpu_torch.parallel import mesh
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 State = Dict[str, Dict[str, torch.Tensor]]
@@ -106,8 +109,14 @@ def _bn(x, node: Node, p, s, train: bool):
     It updates the buffers it is given in place, so it gets copies and
     the caller's ``s`` stays as it was.  Like ``nn.BatchNorm2d``, it
     raises on one value per channel (batch 1 through a global pool).
+
+    Across ranks (``parallel.mesh.world() > 1``) the moments are the
+    global batch's, as under the JAX package's data-sharded ``jnp.mean``:
+    see :func:`_bn_synced`.
     """
     a = node.attrs
+    if train and mesh.world() > 1:
+        return _bn_synced(x, a, p, s)
     if train:
         new_s = {"mean": s["mean"].float().clone(),
                  "var": s["var"].float().clone()}
@@ -122,17 +131,50 @@ def _bn(x, node: Node, p, s, train: bool):
     return y.to(x.dtype), None
 
 
+def _bn_synced(x, a, p, s):
+    """Train-mode BN on the global batch's moments (SyncBN): the mean from
+    the summed per-channel sums and the summed count, then the biased
+    variance from a second sum, of (x - mean)^2 (E[x^2] - E[x]^2 would
+    lose f32 digits the one-process path keeps).  Both sums are
+    differentiable, so the backward is SyncBN's; the running variance
+    takes the unbiased correction over the global N*H*W."""
+    xf = x.float()
+    ch = xf.shape[1]
+    local = torch.cat([xf.sum(dim=(0, 2, 3)),
+                       xf.new_full((1,), xf.numel() // ch)])
+    total = mesh.sum_across(local)
+    count = total[ch].detach()
+    mean = total[:ch] / count
+    d = xf - mean[None, :, None, None]
+    var = mesh.sum_across((d * d).sum(dim=(0, 2, 3))) / count
+    scale = torch.rsqrt(var + a["eps"]) * p["scale"].float()
+    y = d * scale[None, :, None, None] + p["bias"].float()[None, :, None, None]
+    m = a["momentum"]
+    with torch.no_grad():
+        unbiased = var * count / torch.clamp(count - 1, min=1)
+        new_s = {"mean": (1 - m) * s["mean"].float() + m * mean,
+                 "var": (1 - m) * s["var"].float() + m * unbiased}
+    return y.to(x.dtype), new_s
+
+
 def _dropout(x, node: Node, seed: Optional[int]):
     """Dropout from a mask drawn with ``seed`` on x's device; spatial
     dropout draws one value per (n, c).  The same seed gives the same
-    mask, so a recomputed segment replays it."""
+    mask, so a recomputed segment replays it.  Across ranks each rank
+    draws the mask of the global batch (every rank holds the same number
+    of rows) and keeps its own rows, so W ranks drop what one process
+    drops on the global batch."""
     rate = node.attrs["rate"]
     if seed is None or rate == 0.0:
         return x
-    shape = x.shape[:2] + (1, 1) if node.attrs["spatial"] else x.shape
+    w, r = mesh.world(), mesh.rank()
+    n = x.shape[0]
+    shape = (n * w,) + (x.shape[1:2] + (1, 1) if node.attrs["spatial"]
+                        else x.shape[1:])
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
-    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    keep = torch.rand(shape, generator=gen, device=x.device)[r * n:(r + 1) * n]
+    keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

@@ -13,6 +13,13 @@ no host sync to the train step.
   (reference criterion.py:77-101)
 
 Every loss returns a dict with key ``'loss'`` (reference convention).
+
+Across the ranks of a data-parallel group (``parallel/mesh.py``) each
+rank's loss is its share of the loss of the global batch, so the shares
+add up to the one-process loss on it: CE divides its local weighted sum
+by the global weight sum, GSRL its local sum of per-image terms by the
+global image count, and OHEM's threshold is the k-th value over every
+rank's probabilities.  In a world of 1 each is the plain loss.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from dcfp_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_cf
+from dcfp_tpu_torch.parallel import mesh
 
 
 def _take_class(x: torch.Tensor, safe_labels: torch.Tensor,
@@ -57,7 +65,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
         w = cw[safe] * valid
     else:
         w = valid.float()
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
+    den = mesh.all_reduce_(torch.sum(w))  # the global batch's weight sum
+    return torch.sum(nll * w) / torch.clamp(den, min=1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +108,9 @@ def ohem_threshold_and_mined(logits, labels, *, ignore_label: int = 255,
     floored at ``thresh``; the copy reproduces the reference's
     ``scipy.ndimage.zoom`` (sizes round(dim/factor), endpoint-aligned,
     order 1 for the probabilities, order 0 for the labels).  Pixels whose
-    true-class probability is above it become ``ignore_label``.
+    true-class probability is above it become ``ignore_label``.  Across
+    ranks (each with the same batch shape) the k-th value is taken over
+    every rank's copy, gathered, so the threshold is the global batch's.
     """
     probs = F.softmax(logits.float(), dim=1 if channels_first else -1)
     probs = probs.detach()
@@ -115,10 +126,10 @@ def ohem_threshold_and_mined(logits, labels, *, ignore_label: int = 255,
     valid_s = small_labels != ignore_label
     safe_s = torch.where(valid_s, small_labels, 0).long()
     p_true_s = _take_class(small_probs, safe_s, channels_first)
-    flat = torch.where(valid_s, p_true_s, torch.inf).flatten()
+    flat = mesh.all_gather(torch.where(valid_s, p_true_s, torch.inf).flatten())
     k = max(min(min_kept // (factor * factor), flat.numel()), 1)
     kth = torch.kthvalue(flat, k).values
-    num_valid = valid_s.sum()
+    num_valid = mesh.all_reduce_(valid_s.sum())
     one = torch.ones((), device=kth.device)
     threshold = torch.where(
         num_valid <= k, one,
@@ -159,7 +170,10 @@ def _gsrl_weighted_ce(logits, labels_ori, weight, ignore_label,
     nll, _ = _per_pixel_ce(logits, labels_ori, ignore_label, channels_first)
     num = torch.sum(nll * weight, dim=(1, 2))
     den = torch.sum(weight, dim=(1, 2)) + 1e-8
-    return torch.mean(num / den)
+    if mesh.world() == 1:
+        return torch.mean(num / den)
+    n = mesh.all_reduce_(num.new_full((), num.shape[0]))
+    return torch.sum(num / den) / n  # the global batch's mean
 
 
 # ---------------------------------------------------------------------------

@@ -500,20 +500,35 @@ def test_served_callable_hooks():
 
 
 def test_not_ported_parts_raise(monkeypatch):
-    """The mesh Predictor and the cross-process confusion reduce raise
-    instead of running on one device or returning local counts."""
+    """The spatially sharded Predictor raises instead of running on one
+    device; the data-sharded one is the rank's own Predictor on the
+    mesh's device; the confusion reduce is the identity in one process
+    and an exact int64 sum across processes."""
+    from dcfp_tpu_torch.parallel.mesh import create_mesh
     pair = Pair("pointwise")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=object(),
-                      device="cpu")
+    mesh = create_mesh(device="cpu")
+    for shard in ("spatial", "both"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=mesh, shard=shard)
+    pred = tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=mesh, shard="data")
+    assert pred.device == torch.device("cpu")
     cm = np.eye(C)
     assert tev.allreduce_confusion(cm) is cm
     dist = torch.distributed
+    seen = []
+
+    def all_reduce(t, op=None):  # a peer rank holding the same counts
+        seen.append(t.dtype)
+        t.mul_(2)
+
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tev.allreduce_confusion(cm)
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+    got = tev.allreduce_confusion(cm * 3)
+    assert seen == [torch.int64] and got.dtype == np.float64
+    np.testing.assert_array_equal(got, cm * 6)
 
 
 def test_profiling_helpers(tmp_path):
