@@ -87,8 +87,12 @@ exits non-zero without them.  Phases, each of which raises on failure:
     artifacts, evaluate_test), every rc 0, K1 counted on each path (at
     a captured graph's replays), the f32 ``--use-aot`` confusion equal
     to the jit path's, the bf16 artifact's and both captured forms'
-    labels against the jit path's; then ``bench_torch.py`` in a child
-    process, its JSON line parsed and held; one ``{"cli": ...}`` line;
+    labels against the jit path's; scripts/cs/deploy.sh's evaluate
+    command (bf16, 1025x2049; on its pruned snapshot and on the unpruned
+    one) timed a frame as the CLI runs it now (autotuned, under 50 ms)
+    and, in a fresh process, with autotuning off as it ran before; then
+    ``bench_torch.py`` in a child process,
+    its JSON line parsed and held; one ``{"cli": ...}`` line;
 11. data parallel across processes (``phase_dist``): 2 ranks of the
     flagship R50 (NCCL on two cards, else both over gloo on the one
     card), GSRL + EIC + SGD with dropout at a global batch of 4 x 769^2:
@@ -98,9 +102,21 @@ exits non-zero without them.  Phases, each of which raises on failure:
     of 8 seeded 1024x2048 frames split over the ranks, its summed
     confusion equal to one process's, K1 once a frame on each rank; one
     ``{"dist": ...}`` line;
-12. one JSON line with every ported kernel: launches on its path, its
+12. spatial sharding (``phase_spatial``): a 1 x 2 mesh (2 x 2 over NCCL
+    on four cards or more; else both ranks over gloo on the one card),
+    image height split over the spatial ranks, on the flagship R50:
+    GSRL + EIC + SGD with dropout at a global batch of 2 x 769^2, step 1
+    (TF32 off) against one process's by ``phase_dist``'s self-noise
+    rule, the ranks' params bit-equal, a rank's peak memory at most 0.7 x one
+    process's, 3 steps timed with TF32 on; whole-image eval of 4 seeded
+    1024x2048 frames: the first frame's f32 logits against one
+    process's, bf16 labels through K1 (once a frame on each rank)
+    against one fresh process's, flipping at near-ties no more than
+    twice as often as one process flips between two sets of cuDNN plans;
+    one ``{"spatial": ...}`` line;
+13. one JSON line with every ported kernel: launches on its path, its
     check, its time beside its bound, plain and library times;
-13. last line: ``{"ok": true, "device": {...}}``.
+14. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -3161,6 +3177,30 @@ def phase_cli(device="cuda"):
                 "--data-dir", "test", "--whole", "true", "--ms", "1",
                 "--restore-from", snap, "--channel-cfg", cfg,
                 "--output-dir", d["submission"]], times, launches)
+            # scripts/cs/deploy.sh's evaluate command, on the pruned
+            # snapshot it names and on the unpruned pretrain snapshot (the
+            # eval cell's model, whose untuned plans are slow): here,
+            # autotuned as the CLI now runs one process; then in a fresh
+            # process with autotuning off, as it ran before
+            deploy_sh_ms = {}
+            for name, model in (
+                    ("pruned", ["--restore-from", snap, "--channel-cfg",
+                                cfg]),
+                    ("unpruned", ["--restore-from", os.path.join(
+                        d["pretrain"], f"CS_scenes_{CLI_STEPS}.msgpack")])):
+                deploy_sh = CLI_MODEL + model + [
+                    "--data-dir", "val", "--batch-size", "1", "--whole",
+                    "true", "--flip", "false", "--input-size", CLI_DEPLOY,
+                    "--ms", "1", "--dtype", "bfloat16", "--result-file",
+                    os.path.join(tmp, f"result_deploy_sh_{name}.txt")]
+                _run_cli(f"evaluate:deploy_sh_{name}", deploy_sh, times,
+                         launches)
+                deploy_sh_ms[name] = {"autotuned": 1e3 / evals[-1]["fps"],
+                                      "autotuned_frames_timed":
+                                          CLI_IMAGES - 5}
+                if device != "cpu":
+                    deploy_sh_ms[name].update(_untuned_eval_ms(
+                        deploy_sh, fx["val_distinct"], tmp))
             pngs = sorted(os.listdir(os.path.join(d["submission"], "raw")))
             path_launches = dict(kernels.LAUNCHES)
             cms = {name: res["confusion"] for name, res in zip(
@@ -3212,10 +3252,54 @@ def phase_cli(device="cuda"):
               "meanIU": {k: evals[i]["meanIU"] for i, k in enumerate(
                   ("bf16_pipelined", "f32", "aot_f32", "aot_bf16"))},
               "bf16_artifact_vs_jit": agreement,
+              "deploy_sh_eval_ms_per_frame": deploy_sh_ms,
               "bench": bench, "bench_s": bench_s,
               "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"cli": result}), flush=True)
+    for name, ms in deploy_sh_ms.items():
+        if device != "cpu" and ms["autotuned"] >= 50:
+            raise AssertionError(f"deploy.sh's evaluate ({name}): "
+                                 f"{ms['autotuned']:.1f} ms a frame")
     return result
+
+
+UNTUNED_FRAMES = 3  # the untuned run's frames: 2 untimed, 1 timed
+
+
+def _untuned_eval_child(argv):
+    """The evaluate CLI's work (``cli.evaluate._evaluate``) with cuDNN's
+    autotuning off, as one process ran it before the CLI turned it on;
+    prints the result's FPS as one JSON line."""
+    from dcfp_tpu_torch.cli import evaluate as cli_evaluate
+    from dcfp_tpu_torch.cli import platform_device
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    record = []
+    with _recorded_evaluations(record), contextlib.redirect_stdout(
+            sys.stderr):
+        rc = cli_evaluate._evaluate(cli_evaluate.get_parser().parse_args(
+            argv), platform_device())
+    print(json.dumps({"rc": rc, "fps": record[-1]["fps"]}), flush=True)
+
+
+def _untuned_eval_ms(argv, val_list, tmp):
+    """ms a frame of ``argv``'s evaluate in a fresh process with cuDNN's
+    autotuning off (``_untuned_eval_child``), over the first
+    ``UNTUNED_FRAMES`` frames of ``val_list``."""
+    short = os.path.join(tmp, "val_untuned.lst")
+    with open(val_list) as f, open(short, "w") as g:
+        g.writelines(f.readlines()[:UNTUNED_FRAMES])
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, json, chip_smoke as cs; "
+         "cs._untuned_eval_child(json.loads(sys.argv[1]))",
+         json.dumps(argv)], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, DCFP_CS_VAL_LIST=short))
+    if run.returncode != 0:
+        raise AssertionError(f"untuned evaluate: {run.stderr[-3000:]}")
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    return {"untuned": 1e3 / out["fps"],
+            "untuned_frames_timed": UNTUNED_FRAMES - 2}
 
 
 # ---------------------------------------------------------------------------
@@ -3248,11 +3332,14 @@ def _dist_optimizer():
                            weight_decay=5e-4, num_steps=100, warmup=-1)
 
 
-def _dist_steps(model, crit, state0, batches, device, keep_first=True):
+def _dist_steps(model, crit, state0, batches, device, keep_first=True,
+                mesh=None):
     """``len(batches)`` train steps from ``state0`` with dropout from a
-    generator seeded 3 on ``device``: (state after step 1 as numpy trees,
-    final state, losses, grad norms, step ms)."""
-    step = make_train_step(model, crit, _dist_optimizer(), device=device)
+    generator seeded 3 on ``device`` (over ``mesh``'s spatial axis when
+    it has one): (state after step 1 as numpy trees, final state,
+    losses, grad norms, step ms)."""
+    step = make_train_step(model, crit, _dist_optimizer(), device=device,
+                           mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(3)
     st, first, losses, norms, ms = state0, None, [], [], []
     for b in batches:
@@ -3536,13 +3623,16 @@ def phase_dist(device="cuda", hw=DIST_HW, frames=DIST_FRAMES,
     return result
 
 
-def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None):
+def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None,
+             spatial=1):
     """The scripts' train and evaluate commands unchanged over every
     visible card, through the CLIs' ``main`` in this process: pretrain
     with OHEM + EIC (``--num-devices -1``: the CLI starts one worker per
     card), 3 steps at 2 images a card, then the bf16 pipelined eval of
     its snapshot with ``--eval-shard data`` (one worker a card) and in
-    one process.  Holds every rc 0, the snapshot and the EIC scores
+    one process.  ``spatial`` > 1 adds ``--spatial-shards spatial`` to
+    both (2 images a data rank) and evaluates with ``--eval-shard
+    both``.  Holds every rc 0, the snapshot and the EIC scores
     written once, and the two result files equal but for the FPS.
     Prints one ``{"dist_cli": ...}`` line.  Not part of ``main`` (it
     needs 2 or more cards to mean anything):
@@ -3568,8 +3658,10 @@ def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None):
             if not cuda:
                 os.environ["DCFP_PLATFORM"] = "cpu"
             snap = os.path.join(tmp, "pretrain")
-            _run_cli("train", CLI_MODEL + [
-                "--input-size", crop, "--batch-size", str(2 * cards),
+            shards = ["--spatial-shards", str(spatial)]
+            _run_cli("train", CLI_MODEL + shards + [
+                "--input-size", crop,
+                "--batch-size", str(2 * cards // spatial),
                 "--random-seed", "42", "--random-mirror", "--loss-type",
                 "ohem", "--loss-para", '{"ds_weight":0.4}', "--prune-type",
                 "dcfp", "--num-steps", "3", "--save-pred-every", "3",
@@ -3581,9 +3673,10 @@ def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None):
                 raise AssertionError(f"dist_cli: the snapshot dir holds "
                                      f"{written}")
             results = {}
-            for shard in ("data", "none"):
+            for shard in ("data" if spatial == 1 else "both", "none"):
                 results[shard] = os.path.join(tmp, f"result_{shard}.txt")
-                _run_cli(f"evaluate:{shard}", CLI_MODEL + [
+                _run_cli(f"evaluate:{shard}", CLI_MODEL + (
+                    shards if shard != "none" else []) + [
                     "--data-dir", "val", "--restore-from",
                     os.path.join(snap, "CS_scenes_3.msgpack"),
                     "--whole", "true", "--dtype", "bfloat16", "--pipeline",
@@ -3598,7 +3691,7 @@ def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None):
                     raise AssertionError(f"dist_cli: {path} holds "
                                          f"{text.count('test with')} results")
                 texts[shard] = text[:text.rindex(" FPS:")]
-            equal = texts["data"] == texts["none"]
+            equal = len(set(texts.values())) == 1
             mean_iu = json.loads(texts["none"].splitlines()[1])["meanIU"]
     finally:
         for k, v in saved_env.items():
@@ -3606,7 +3699,8 @@ def dist_cli(device="cuda", hw=(256, 512), crop="257,257", cards=None):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    result = {"card": card, "cards": cards, "seconds": times,
+    result = {"card": card, "cards": cards, "spatial_shards": spatial,
+              "seconds": times,
               "snapshot_files": written, "eval_results_equal": equal,
               "meanIU": mean_iu, "phase_s": time.perf_counter() - t0}
     print(json.dumps({"dist_cli": result}), flush=True)
@@ -3665,6 +3759,411 @@ def eval_plan_probe():
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. spatial sharding: image height over the ranks of a spatial group
+# ---------------------------------------------------------------------------
+
+SPATIAL_S = 2  # spatial ranks of a data rank
+SPATIAL_BATCH = 2  # global
+SPATIAL_HW = 769
+SPATIAL_STEPS = 3  # timed, TF32 on, after the compared step (TF32 off)
+SPATIAL_FRAMES = 4
+
+
+def _peak_since(base):
+    """Bytes allocated at the peak since the last reset, above ``base``
+    (0 off CUDA)."""
+    if not torch.cuda.is_available():
+        return 0
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _memory_base():
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _spatial_eval_setup(cfg, out_dir):
+    """The eval cell's model and frames (``_dist_eval_setup``), with the
+    classifier bias that the parent centred (``bias.pt``), so that the
+    labels follow the image."""
+    graph, params, state, classic = _dist_eval_setup(cfg)
+    params["last_conv.6"]["bias"].copy_(torch.load(
+        os.path.join(out_dir, "bias.pt")))
+    return graph, params, state, classic
+
+
+def _padded(item):
+    img = item["img"]
+    ph, pw = pad_inf(img.shape[1:3])
+    return np.pad(img, ((0, 0), (0, ph - img.shape[1]),
+                        (0, pw - img.shape[2]), (0, 0)))
+
+
+def _spatial_rank(rank, port, backend, out_dir, cfg):
+    """One rank of phase_spatial (a spawned process) on an ``n_data`` x 2
+    mesh: one train step on its band of its data rank's images with TF32
+    off (compared; its peak memory), ``steps`` more with cuDNN's TF32 on
+    (timed); then the eval: f32 whole-image logits of the first frame
+    over the spatial group against this process's own one-process
+    Predictor, and the bf16 labels of every frame through K1 (written for
+    the parent; K1 held against its plain version on the first frame's
+    gathered low-res logits).  Writes ``rank<r>.json``
+    (rank 0 its step-1 trees to ``step1.pt``, each data rank's first
+    spatial rank its labels)."""
+    import datetime
+
+    from dcfp_tpu_torch.parallel import distributed
+    from dcfp_tpu_torch.parallel.mesh import create_mesh, replicate_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_data = cfg["n_data"]
+    distributed.initialize(f"localhost:{port}", n_data * SPATIAL_S, rank,
+                           backend=backend, device=cfg["device"],
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    mesh = create_mesh(n_data, SPATIAL_S, device=cfg["device"])
+    dev = mesh.device
+    model, params, state, crit, batch = _dist_setup(cfg)
+    n, d = cfg["batch"] // n_data, mesh.data_rank
+
+    def mine(tree):
+        return {k: mine(v) if isinstance(v, dict) else v[d * n:(d + 1) * n]
+                for k, v in tree.items()}
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    base = _memory_base()
+    st = replicate_tree(mesh, create_train_state(
+        model, params, state, _dist_optimizer(), prune_type="dcfp",
+        device=dev))
+    first, st, losses, norms, ms_off = _dist_steps(
+        model, crit, st, [mine(batch)], dev, keep_first=rank == 0,
+        mesh=mesh)
+    peak = _peak_since(base)
+    torch.backends.cudnn.allow_tf32 = True
+    _, st, losses_on, _, ms = _dist_steps(
+        model, crit, st, [mine(batch)] * cfg["steps"], dev,
+        keep_first=False, mesh=mesh)
+    torch.backends.cudnn.allow_tf32 = False
+    train_launches = dict(kernels.LAUNCHES)
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "step1.pt"))
+    digest = _tree_digest(st.params, st.bn_state, st.eic)
+    del st
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    graph, eparams, estate, classic = _spatial_eval_setup(cfg, out_dir)
+    frames = [_padded(it) for it in classic[d::n_data]]
+    shard = "spatial" if n_data == 1 else "both"
+    # f32 on the first frame (cuDNN's f32 plans at 1025x2049 cost seconds
+    # a forward untuned and minutes to tune), against this process's own
+    # whole-image forward
+    banded = Predictor(graph, eparams, estate, align_corner=True, mesh=mesh,
+                       shard=shard)
+    whole = Predictor(graph, eparams, estate, align_corner=True, device=dev)
+    got, want = banded.predict_whole(frames[0]), whole.predict_whole(frames[0])
+    f32_err = float((got - want).abs().max() / want.abs().max())
+    f32_label_diff = int((got.argmax(-1) != want.argmax(-1)).sum())
+    del banded, whole, got, want
+    # bf16 autotuned: labels flip at near-ties between any two sets of
+    # plans (held against one process's own flips in the parent)
+    torch.backends.cudnn.benchmark = True
+    pred = Predictor(graph, eparams, estate, dtype=torch.bfloat16,
+                     align_corner=True, mesh=mesh, shard=shard)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    labels = []
+    t0 = time.perf_counter()
+    for img in frames:
+        labels.append(pred.predict_whole_labels(img))
+    profiling.sync(labels[-1])
+    labels_s = time.perf_counter() - t0
+    k1 = kernels.LAUNCHES["resize_argmax"]
+    others = {k: v for k, v in kernels.LAUNCHES.items()
+              if k != "resize_argmax"}
+    # K1 against its plain version on the first frame's gathered logits
+    body, _, dparams = make_split_inference_fn(
+        graph, eparams, estate, dtype=torch.bfloat16, output="argmax",
+        device=dev, spatial_axis=mesh.spatial)
+    with torch.inference_mode():
+        z = body(dparams, torch.from_numpy(frames[0]).to(dev))
+    k1_mismatch = near_tie_check(labels[0], z.permute(0, 2, 3, 1),
+                                 frames[0].shape[1:3], True,
+                                 f"spatial rank {rank} K1")[0]
+    if mesh.spatial_rank == 0:
+        torch.save(torch.stack(labels).cpu(),
+                   os.path.join(out_dir, f"labels{d}.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "device": str(dev),
+                   "data_rank": d, "spatial_rank": mesh.spatial_rank,
+                   "losses": losses, "grad_norms": norms,
+                   "step_ms_tf32_off": ms_off, "losses_tf32": losses_on,
+                   "step_ms": ms, "peak_bytes": peak,
+                   "train_launches": train_launches,
+                   "params_sha256": digest, "frames": len(frames),
+                   "f32_logits_max_err_rel_to_max": f32_err,
+                   "f32_labels_differing": f32_label_diff,
+                   "bf16_labels_s": labels_s, "k1_launches": k1,
+                   "k1_vs_plain_mismatches": k1_mismatch,
+                   "eval_other_launches": others}, f)
+
+
+SPATIAL_FLOOR_FRAMES = 2  # frames of one process's own flips
+
+
+def _spatial_one(autotune, out_dir, cfg):
+    """phase_spatial's one-process bf16 labels, in a fresh process (no
+    group): cuDNN autotuned as the ranks (``autotune`` 1; each frame's
+    labels through K1 and its low-res logits), or on its heuristic plans
+    (0: other algorithms for the same shapes; the first
+    ``SPATIAL_FLOOR_FRAMES`` frames' labels).  Writes
+    ``one<autotune>.pt``."""
+    torch.backends.cudnn.benchmark = bool(autotune)
+    graph, params, state, classic = _spatial_eval_setup(cfg, out_dir)
+    dev = torch.device(cfg["device"])
+    pred = Predictor(graph, params, state, dtype=torch.bfloat16,
+                     align_corner=True, device=dev)
+    body, _, dparams = make_split_inference_fn(
+        graph, params, state, dtype=torch.bfloat16, output="argmax",
+        device=dev)
+    labels, zs = [], []
+    for item in (classic if autotune else classic[:SPATIAL_FLOOR_FRAMES]):
+        img = _padded(item)
+        labels.append(pred.predict_whole_labels(img).cpu())
+        if autotune:
+            with torch.inference_mode():
+                zs.append(body(dparams, torch.from_numpy(img).to(dev)).cpu())
+    torch.save({"labels": torch.stack(labels),
+                "z": torch.stack(zs) if zs else None},
+               os.path.join(out_dir, f"one{autotune}.pt"))
+
+
+def _centred_bias(cfg, out_dir):
+    """The eval model's classifier bias minus each class's mean logit over
+    the first frame (f32, bias 0), written to ``bias.pt``: random
+    weights otherwise label every pixel one class."""
+    graph, params, state, classic = _dist_eval_setup(cfg)
+    body, _, dparams = make_split_inference_fn(
+        graph, params, state, dtype=torch.float32, output="argmax",
+        device=cfg["device"])
+    with torch.inference_mode():
+        z = body(dparams, torch.from_numpy(_padded(classic[0])).to(
+            cfg["device"]))
+    torch.save((-z.float().mean((0, 2, 3))).cpu(),
+               os.path.join(out_dir, "bias.pt"))
+
+
+def _labels_vs_one(got, one):
+    """bf16 labels against one process's: the differing pixels and the
+    widest top-2 gap of one process's resized logits among them, in bf16
+    ulp of the best; how far the labels vary."""
+    n_diff = n_pix = 0
+    worst = 0.0
+    hist = torch.zeros(256, dtype=torch.int64)
+    for i in range(len(got)):
+        lab, want = got[i], one["labels"][i]
+        diff = lab != want
+        n_diff += int(diff.sum())
+        n_pix += diff.numel()
+        hist += torch.bincount(want.flatten().long(), minlength=256)
+        if bool(diff.any()):
+            up = resize_bilinear(one["z"][i].permute(0, 2, 3, 1),
+                                 want.shape[-2:], True).float()
+            top2 = up.topk(2, dim=-1).values[diff]
+            ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+                torch.log2(top2[:, 0].abs().clamp_min(1e-30))))
+            worst = max(worst, float(((top2[:, 0] - top2[:, 1]) / ulp).max()))
+    hist = hist.numpy()
+    return {"pixels": n_pix, "differing": n_diff,
+            "agreement": 1.0 - n_diff / n_pix,
+            "worst_top2_gap_bf16_ulps": worst,
+            "classes": int((hist > 0).sum()),
+            "top_class_share": float(hist.max() / hist.sum())}
+
+
+def phase_spatial(device="cuda", hw=SPATIAL_HW, frames=SPATIAL_FRAMES,
+                  eval_hw=EVAL_HW, n_data=None):
+    """Spatial sharding on the flagship R50 at full width: an ``n_data``
+    x 2 mesh (2 x 2 over NCCL, a card a rank, where the machine has 4 or
+    more cards; else 1 x 2 with both ranks over gloo on one card).
+    Train: GSRL + EIC + SGD with dropout, a global batch of 2 x 769^2
+    (f32), each rank its band of its data rank's images: step 1 with
+    TF32 off against one process's step on the global batch by
+    ``phase_dist``'s self-noise rule, the ranks' params bit-equal after 3
+    more steps with TF32 on (timed), a rank's peak memory in step 1 at most
+    0.7 x one process's.  Eval (the eval cell's model, classifier bias
+    centred): 4 seeded 1024x2048 frames padded to 1025x2049, whole image
+    over the spatial group (``shard="spatial"``, "both" on 2 x 2): the
+    first frame's f32 logits against one process's within 1e-4 x
+    max|logit| (labels differing on at most 1e-4 of the pixels); bf16
+    labels through K1 (once a frame on each rank, nothing else launched)
+    against one fresh autotuned process's, flipping at most twice as
+    often as that process's labels flip against its heuristic plans
+    (``_labels_vs_one``); K1 against its plain version on the first
+    frame's gathered logits by ``near_tie_check``.  Prints one
+    ``{"spatial": ...}`` line.  ``device="cpu"`` with smaller sizes
+    dry-runs it on the CPU (gloo)."""
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    cards = torch.cuda.device_count() if cuda else 0
+    if n_data is None:
+        n_data = 2 if cards >= 2 * SPATIAL_S else 1
+    world = n_data * SPATIAL_S
+    backend = "nccl" if cuda and cards >= world else "gloo"
+    cfg = dict(device=device, hw=hw, batch=SPATIAL_BATCH, steps=SPATIAL_STEPS,
+               frames=frames, eval_hw=eval_hw, n_data=n_data)
+    card = _card_line() if cuda else "cpu"
+    log(f"[spatial] {cards} card(s) visible: {n_data} x {SPATIAL_S} mesh "
+        f"over {backend}; {card}")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = (cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = \
+                (False,) * 3
+            _centred_bias(cfg, tmp)
+            if cuda:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            _spawn(_spatial_rank, world, (port, backend, tmp, cfg))
+            ranks_s = time.perf_counter() - t0
+            ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                     for r in range(world)]
+            got_p, got_s, got_e = torch.load(os.path.join(tmp, "step1.pt"),
+                                             weights_only=False)
+            model, params, state, crit, batch = _dist_setup(cfg)
+            np_p, _ = params_to_numpy(params, state)
+            nudged = dict(batch,
+                          img=batch["img"] * np.float32(1 + 2.0 ** -22))
+
+            def one(b, steps):
+                st = create_train_state(model, params, state,
+                                        _dist_optimizer(), prune_type="dcfp",
+                                        device=device)
+                return _dist_steps(model, crit, st, [b] * steps, device)
+
+            base = _memory_base()
+            (ref_p, ref_s, ref_e), ref_st, ref_losses, _, ref_ms_off = one(
+                batch, 1)
+            one_peak = _peak_since(base)
+            (noise_p, _, noise_e), _, _, _, _ = one(nudged, 1)
+            cudnn.allow_tf32 = True
+            _, _, ref_losses_on, _, ref_ms = _dist_steps(
+                model, crit, ref_st, [batch] * cfg["steps"], device,
+                keep_first=False)
+            del ref_st
+        finally:
+            cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = flags
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _spawn(_spatial_one, 2, (tmp, cfg))
+        one_s = time.perf_counter() - t0
+        one_eval = torch.load(os.path.join(tmp, "one1.pt"))
+        heuristic = torch.load(os.path.join(tmp, "one0.pt"))
+        sharded = [torch.load(os.path.join(tmp, f"labels{d}.pt"))
+                   for d in range(n_data)]
+    got_labels = [sharded[i % n_data][i // n_data] for i in range(frames)]
+    agreement = _labels_vs_one(got_labels, one_eval)
+    floor = _labels_vs_one(list(heuristic["labels"]), one_eval)
+    loss_rel = abs(ranks[0]["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+    bn_worst = max(float(np.abs(got_s[b][k] - ref_s[b][k]).max()
+                         / np.abs(ref_s[b][k]).max())
+                   for b in ref_s for k in ref_s[b])
+    err, cos, rmin, rmax, worst = _update_agreement(got_p, ref_p, np_p)
+    noise_err = _update_agreement(noise_p, ref_p, np_p)[0]
+    eic_err = _vec_rel_l2(got_e, ref_e)
+    eic_noise = _vec_rel_l2(noise_e, ref_e)
+    bit_equal = len({r["params_sha256"] for r in ranks}) == 1
+    peak_ratio = (max(r["peak_bytes"] for r in ranks) / one_peak
+                  if one_peak else None)
+    k1 = [r["k1_launches"] for r in ranks]
+    result = {
+        "card": card, "cards_visible": cards, "backend": backend,
+        "mesh": [n_data, SPATIAL_S],
+        "model": "deeplabv3-resnet50 os8 mg[1,2,4] stem128 19 classes, "
+                 "deepsup, GSRL+EIC+SGD, dropout on",
+        "global_batch": [SPATIAL_BATCH, hw, hw],
+        "eval_frames_hw": [frames, *eval_hw],
+        "rank_step_ms_tf32": [r["step_ms"] for r in ranks],
+        "one_process_step_ms_tf32": ref_ms,
+        "rank_step_ms_median_tf32": float(np.median(
+            [v for r in ranks for v in r["step_ms"][1:]])),
+        "one_process_step_ms_median_tf32": float(np.median(ref_ms[1:])),
+        "rank_step1_ms_tf32_off": [r["step_ms_tf32_off"] for r in ranks],
+        "one_process_step1_ms_tf32_off": ref_ms_off,
+        "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
+        "one_process_peak_bytes": one_peak,
+        "rank_peak_over_one_process": peak_ratio,
+        "losses_ranks_tf32": ranks[0]["losses_tf32"],
+        "losses_1_process_tf32": ref_losses_on,
+        "step1_loss_ranks": ranks[0]["losses"][0],
+        "step1_loss_1_process": ref_losses[0],
+        "step1_loss_rel_err": loss_rel,
+        "step1_bn_stats_max_err_rel_to_max": bn_worst,
+        "step1_update_rel_l2": err,
+        "one_process_self_noise_update_rel_l2": noise_err,
+        "step1_update_min_cos": cos,
+        "step1_update_norm_ratio": [rmin, rmax],
+        "step1_update_max_err_rel_to_max_update": worst,
+        "step1_eic_rel_l2": eic_err,
+        "one_process_self_noise_eic_rel_l2": eic_noise,
+        "ranks_params_bit_equal": bit_equal,
+        "params_sha256": [r["params_sha256"][:16] for r in ranks],
+        "train_launches": [r["train_launches"] for r in ranks],
+        "eval_frames": [r["frames"] for r in ranks],
+        "f32_logits_max_err_rel_to_max": [
+            r["f32_logits_max_err_rel_to_max"] for r in ranks],
+        "bf16_labels_s": [r["bf16_labels_s"] for r in ranks],
+        "k1_launches_per_rank": k1,
+        "k1_vs_plain_mismatches": [r["k1_vs_plain_mismatches"]
+                                   for r in ranks],
+        "f32_labels_differing": [r["f32_labels_differing"] for r in ranks],
+        "bf16_labels_vs_one_process": agreement,
+        "one_process_heuristic_plans_vs_autotuned": floor,
+        "one_process_eval_s": one_s,
+        "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"spatial": result}), flush=True)
+    if not (loss_rel <= 1e-4 and bn_worst <= 1e-3
+            and err <= min(2 * noise_err, 0.1) and cos >= 0.99
+            and 0.95 <= rmin and rmax <= 1.05 and eic_err <= 2 * eic_noise):
+        raise AssertionError("spatial: the ranks' step differs from one "
+                             "process's")
+    if not bit_equal:
+        raise AssertionError("spatial: the ranks' params differ")
+    if max(result["f32_logits_max_err_rel_to_max"]) > 1e-4 or max(
+            result["f32_labels_differing"]) > 1e-4 * (agreement["pixels"]
+                                                      // frames):
+        raise AssertionError("spatial: f32 logits differ from one process's")
+    if agreement["classes"] < CLI_MIN_CLASSES or \
+            agreement["top_class_share"] > CLI_MAX_SHARE:
+        raise AssertionError("spatial: the labels do not vary")
+    # bf16 labels flip between any two sets of conv algorithms at the
+    # logits' near-ties: held within twice one process's own flips
+    # between its heuristic and its autotuned plans
+    if (1 - agreement["agreement"] > max(2 * (1 - floor["agreement"]), 1e-3)
+            or agreement["worst_top2_gap_bf16_ulps"]
+            > max(2 * floor["worst_top2_gap_bf16_ulps"], 8)):
+        raise AssertionError("spatial: bf16 labels against one process")
+    if cuda and peak_ratio > 0.7:
+        raise AssertionError(f"spatial: a rank's peak is {peak_ratio:.3f} "
+                             "of one process's")
+    if cuda and any(v != r["frames"] for v, r in zip(k1, ranks)):
+        raise AssertionError(f"spatial: K1 launches {k1}")
+    if any(any(r["train_launches"].values())
+           or any(r["eval_other_launches"].values()) for r in ranks):
+        raise AssertionError("spatial: a kernel other than K1 was launched")
+    return result
+
+
 def main():
     phase_device()
     phase_build()
@@ -3687,6 +4186,7 @@ def main():
     data_result = phase_data()
     cli_result = phase_cli()
     dist_result = phase_dist()
+    spatial_result = phase_spatial()
     main_case = next(v for k, v in k1_cases.items()
                      if k.startswith(str(MAIN_SHAPE)) and "bfloat16" in k)
     k2_main = max(v for k, v in k2_cases.items()
@@ -3708,6 +4208,8 @@ def main():
              launches_on_cli_path=cli_result["k1_launches_on_cli_path"],
              launches_on_dist_path=sum(
                  dist_result["eval_k1_launches_per_rank"]),
+             launches_on_spatial_path=sum(
+                 spatial_result["k1_launches_per_rank"]),
              **k1_time),
         dict(name="stem_conv3x3_s2", route="cuda",
              source="dcfp_tpu_torch/csrc/stem_conv.cu",

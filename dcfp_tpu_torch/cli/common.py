@@ -9,8 +9,11 @@ data axis of the JAX package's mesh is the process axis here,
 (its environment is read), ``--distributed true`` with ``--coordinator
 host:port --num-processes N --process-id i`` per process, or the scripts'
 unchanged commands, for which the CLI starts one worker process per card
-itself (``launch_workers``).  Spatial sharding (``--spatial-shards`` >
-1) raises ``NotImplementedError`` before a file is written.
+itself (``launch_workers``).  ``--spatial-shards S`` splits those W
+processes into a ``(W / S) x S`` mesh: each group of S consecutive
+ranks takes the same images and holds bands of their rows
+(``parallel/spatial.py``); a count that does not divide raises before a
+file is written or a process started (``mesh_axes``).
 """
 
 from __future__ import annotations
@@ -117,8 +120,8 @@ def add_runtime_args(p: argparse.ArgumentParser):
     p.add_argument("--snapshot-dir", type=str, default="snapshots")
     p.add_argument("--save-log", action="store_true")
     p.add_argument("--spatial-shards", type=int, default=1,
-                   help="mesh 'spatial' axis size (H sharding); only 1 "
-                        "here (not ported)")
+                   help="mesh 'spatial' axis size: image height split "
+                        "over this many processes of each data group")
     p.add_argument("--num-devices", type=int, default=-1,
                    help="cards of the job, one process each; -1 = every "
                         "visible card (on the CPU: N gloo processes, "
@@ -153,13 +156,14 @@ def maybe_initialize_distributed(args, device: torch.device) -> None:
                                process_id=args.process_id, device=device)
 
 
-def require_no_spatial(args) -> None:
-    """Raise NotImplementedError, before any file is written, for the
-    spatial axis of the mesh, which the port does not shard yet."""
-    from dcfp_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
-    if getattr(args, "spatial_shards", 1) > 1:
-        raise NotImplementedError(
-            f"--spatial-shards {args.spatial_shards}: {SPATIAL_NOT_PORTED}")
+def mesh_axes(args, world: int) -> Tuple[int, int]:
+    """(n_data, n_spatial) of a job of ``world`` processes under
+    ``--spatial-shards``; raises ValueError when it does not divide."""
+    s = getattr(args, "spatial_shards", 1)
+    if s < 1 or world % s:
+        raise ValueError(f"--spatial-shards {s} does not divide the job's "
+                         f"{world} process(es)")
+    return world // s, s
 
 
 def job_world(args, device: torch.device, cards: Optional[int]

@@ -8,12 +8,15 @@ PNGs; results appended to ``result.txt``.
 ``engine.deploy.load_serialized``.
 
 Across processes (``torchrun``, ``--distributed true``, or ``--eval-shard
-data``, for which the CLI starts one process per card itself,
-``--num-devices`` of them, 0 = every visible card) each rank evaluates
-its stride of the split on its own card, the confusion counts are summed
-at the end, and rank 0 writes the result file.  ``--eval-shard
-spatial|both`` and ``--spatial-shards`` > 1 raise NotImplementedError
-before any file is written (ROADMAP.md queue 1, item 7).
+data|spatial|both``, for which the CLI starts one process per card
+itself, ``--num-devices`` of them, 0 = every visible card) the processes
+form a ``(W / S) x S`` mesh (``S = --spatial-shards``): each data rank
+evaluates its stride of the split, with ``spatial`` or ``both`` its S
+ranks splitting each image's height, the confusion counts are summed at
+the end, and rank 0 writes the result file.  One process autotunes
+cuDNN's conv algorithms (as ``cli.deploy`` does); a sharded eval does
+not, so that every rank takes the algorithms one process would without
+autotuning and the summed confusion equals one process's.
 
 Example (Cityscapes single-scale whole-image, scripts/cs/finetune.sh:35,
 module renamed):
@@ -30,6 +33,8 @@ import argparse
 import json
 import os
 
+import torch
+
 from dcfp_tpu_torch.cli import platform_device
 from dcfp_tpu_torch.cli.common import (DTYPES, add_data_args,
                                        add_distributed_args, add_model_args,
@@ -37,8 +42,8 @@ from dcfp_tpu_torch.cli.common import (DTYPES, add_data_args,
                                        build_model_from_args, init_params,
                                        job_world, launch_workers, make_mesh,
                                        maybe_initialize_distributed,
-                                       maybe_load_channel_cfg, parse_hw,
-                                       require_no_spatial, str2bool)
+                                       maybe_load_channel_cfg, mesh_axes,
+                                       parse_hw, str2bool)
 from dcfp_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -86,9 +91,10 @@ def get_parser() -> argparse.ArgumentParser:
                         "resolution val sets run a bounded set of shapes "
                         "(0 = one per distinct shape)")
     p.add_argument("--eval-shard", type=str, default="none",
-                   help="none|data|spatial|both: data = one process per "
-                        "card, each on its stride of the split; spatial "
-                        "and both are not ported (they raise)")
+                   help="none|data|spatial|both: one process per card, "
+                        "each data rank on its stride of the split; with "
+                        "spatial|both the --spatial-shards ranks of each "
+                        "split the image height")
     p.add_argument("--num-devices", type=int, default=0,
                    help="devices for --eval-shard (0 = all)")
     p.add_argument("--spatial-shards", type=int, default=1)
@@ -186,22 +192,33 @@ def _load_aot(args, graph, params, bn_state, dtype, normalize, device,
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
-    if args.eval_shard in ("spatial", "both"):
-        from dcfp_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
-        raise NotImplementedError(
-            f"--eval-shard {args.eval_shard}: {SPATIAL_NOT_PORTED}")
-    if args.eval_shard not in ("none", "data"):
+    if args.eval_shard not in ("none", "data", "spatial", "both"):
         raise ValueError(f"--eval-shard {args.eval_shard!r}: none, data, "
                          "spatial or both")
-    require_no_spatial(args)
+    if args.use_aot and args.eval_shard in ("spatial", "both"):
+        raise SystemExit("--use-aot serves whole images; it has no "
+                         f"--eval-shard {args.eval_shard}")
     device = platform_device()
     maybe_initialize_distributed(args, device)
-    # one process unless launched, or asked for a data-sharded eval
+    # one process unless launched, or asked for a sharded eval
     world, start = job_world(
-        args, device, args.num_devices if args.eval_shard == "data"
+        args, device, args.num_devices if args.eval_shard != "none"
         else None)
+    mesh_axes(args, world)
     if start:
         return launch_workers("dcfp_tpu_torch.cli.evaluate", argv, world)
+    # cuDNN autotunes the convs of a one-process eval, as cli.deploy does;
+    # ranks that time their own choices could take different algorithms
+    # and flip bf16 near-ties between them, so a sharded eval does not
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = world == 1
+    try:
+        return _evaluate(args, device)
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+
+
+def _evaluate(args, device) -> int:
     mesh = make_mesh(args, device)
     device = mesh.device
     from dcfp_tpu_torch.data.loader import EvalLoader
@@ -212,11 +229,12 @@ def main(argv=None) -> int:
     dataset = build_dataset_from_args(args, args.data_dir,
                                       compact=args.compact)
     normalize = ((dataset.mean, dataset.std) if args.compact else None)
-    # each process evaluates its stride of the split; the confusion
-    # counts sum across processes at the end (reference
-    # DistributedSampler + dist.all_reduce, evaluate.py:370-372)
+    # each data rank evaluates its stride of the split (the ranks of a
+    # spatial group the same images); the confusion counts sum across
+    # processes at the end (reference DistributedSampler +
+    # dist.all_reduce, evaluate.py:370-372)
     loader = EvalLoader(dataset, batch_size=args.batch_size,
-                        rank=mesh.rank, world=world,
+                        rank=mesh.data_rank, world=mesh.n_data,
                         num_workers=args.num_workers)
 
     model = build_model_from_args(args, dataset.num_classes, deepsup=False)
@@ -259,12 +277,14 @@ def main(argv=None) -> int:
                               normalize, device, aot_whole, aot_sliding,
                               aot_ms, scales_chk)
     else:
-        if args.eval_shard == "data":
-            log.info("eval mesh: data over %d process(es)", world)
+        if args.eval_shard != "none":
+            log.info("eval mesh: %s, %d data x %d spatial", args.eval_shard,
+                     mesh.n_data, mesh.n_spatial)
         predictor = Predictor(graph, params, bn_state, dtype=dtype,
                               bucket_quantum=args.bucket_quantum,
                               align_corner=args.align_corner, mesh=mesh,
-                              normalize=normalize)
+                              shard="data" if args.eval_shard == "none"
+                              else args.eval_shard, normalize=normalize)
 
     scales = [float(s) for s in args.ms.split(",") if s]
     result_file = args.result_file or os.path.join(

@@ -13,10 +13,13 @@ itself unless a launcher did (``torchrun``, ``--distributed true``).
 ``--batch-size`` is the GLOBAL batch; each rank loads its stride of the
 epoch permutation, and the step reduces BN moments, losses and gradients
 over the ranks (``engine/trainer.py``).  Rank 0 writes the snapshots,
-the EIC scores and the metrics file.  ``--spatial-shards`` > 1 raises
-NotImplementedError before any file is written (ROADMAP.md queue 1,
-item 7).  ``--xla-options`` is accepted, as the scripts pass it, and
-logged as having no counterpart.
+the EIC scores and the metrics file.  ``--spatial-shards S`` makes the
+W processes a ``(W / S) x S`` mesh: the global batch splits over the
+W / S data ranks, and the S ranks of each take the same images and
+split their height (``parallel/spatial.py``); S must divide W and W / S
+the global batch, checked before any file is written.
+``--xla-options`` is accepted, as the scripts pass it, and logged as
+having no counterpart.
 
 Example (Cityscapes pretrain, scripts/cs/pretrain.sh with the module
 renamed):
@@ -47,8 +50,7 @@ from dcfp_tpu_torch.cli.common import (add_data_args, add_model_args,
                                        init_params, job_world,
                                        launch_workers, make_mesh,
                                        maybe_initialize_distributed,
-                                       maybe_load_channel_cfg,
-                                       require_no_spatial,
+                                       maybe_load_channel_cfg, mesh_axes,
                                        setup_dirs_and_logging, str2bool)
 from dcfp_tpu_torch.utils.logger import get_logger
 
@@ -158,14 +160,18 @@ def main(argv=None) -> int:
         parser.error("--balance 2 (effective-number weights) needs the "
                      "sampled class id, which only --resample true "
                      "provides (reference datasets/Base.py:82)")
-    require_no_spatial(args)
     device = platform_device()
     maybe_initialize_distributed(args, device)
     world, start = job_world(args, device, args.num_devices)
-    # --batch-size is GLOBAL (reference engine.py:81: batch //= world)
-    if args.batch_size % world:
+    try:
+        n_data, _ = mesh_axes(args, world)
+    except ValueError as e:
+        parser.error(str(e))
+    # --batch-size is GLOBAL (reference engine.py:81: batch //= world),
+    # split over the data axis
+    if args.batch_size % n_data:
         parser.error(f"--batch-size {args.batch_size} not divisible by "
-                     f"{world} processes")
+                     f"{n_data} data rank(s)")
     if start:
         return launch_workers("dcfp_tpu_torch.cli.train", argv, world)
     mesh = make_mesh(args, device)
@@ -188,12 +194,13 @@ def main(argv=None) -> int:
 
     dataset = build_dataset_from_args(args, "train", resample=args.resample,
                                       compact=args.compact_batches)
-    # each process loads its rank's stride of the epoch permutation and
-    # decodes with --num-workers processes
-    loader = TrainLoader(dataset, args.batch_size // world,
+    # each process loads its data rank's stride of the epoch permutation
+    # (the ranks of a spatial group the same images) and decodes with
+    # --num-workers processes
+    loader = TrainLoader(dataset, args.batch_size // mesh.n_data,
                          seed=args.random_seed,
                          num_workers=args.num_workers,
-                         rank=mesh.rank, world=world)
+                         rank=mesh.data_rank, world=mesh.n_data)
 
     criterion = build_criterions(
         args.loss_type, ignore_label=dataset.ignore_label,
@@ -259,7 +266,7 @@ def main(argv=None) -> int:
                      # boundaries, so no rank leaves mid-collective
                      handle_signals=True,
                      metrics_file=args.metrics_file,
-                     remat_segments=args.remat)
+                     remat_segments=args.remat, mesh=mesh)
 
     host = iter(loader)
     try:

@@ -8,7 +8,10 @@ Replaces the reference's DataLoader/DistributedSampler machinery
 * one loader per *process* feeds that process's shard of the global
   batch (``rank``/``world`` stride-split the epoch permutation exactly
   like torch's DistributedSampler; single-process jobs keep the whole
-  batch and shard at device_put);
+  batch and shard at device_put).  They are the mesh's data rank and
+  data axis size: the ranks of one spatial group pass the same pair and
+  so decode the same items with the same augmentation, each keeping its
+  band of rows later (``engine/trainer.expand_batch``);
 * host-side decode/augment runs in ``num_workers`` OS processes feeding
   a reorder buffer (the reference's ``workers=4`` DataLoader,
   engine.py:81-93) — workers run numpy and ``cv2`` only and never touch

@@ -39,6 +39,8 @@ from dcfp_tpu_torch import bridge
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.graph.apply import graph_apply
 from dcfp_tpu_torch.graph.ir import Graph
+from dcfp_tpu_torch.graph.shapes import infer_shapes
+from dcfp_tpu_torch.parallel import spatial
 from dcfp_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -130,11 +132,27 @@ def _to_device(tree: Dict, dev: torch.device, dtype: torch.dtype) -> Dict:
     return out
 
 
+def split_pred_tail(graph: Graph):
+    """(body, tail): when 'pred' is a to-input bilinear resize, the graph
+    whose output is that resize's input, and the resize node; else
+    (graph, None).  The interpreter runs every node, so the body drops
+    the full-resolution resize that a tail takes the place of."""
+    node = graph.node("pred")
+    if node.op != "resize" or not node.attrs.get("to_input"):
+        return graph, None
+    body = graph.copy()
+    body.outputs = [node.inputs[0] if o == "pred" else o
+                    for o in graph.outputs]
+    if not body.consumers("pred"):
+        del body.nodes["pred"]
+    return body, node
+
+
 def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
                             dtype: torch.dtype = torch.bfloat16,
                             fold_bn: bool = True, output: str = "logits",
                             input_format: str = "nhwc", input_hw=None,
-                            device: DeviceLike = None):
+                            device: DeviceLike = None, spatial_axis=None):
     """Returns (body_fn, tail_fn, dev_params).
 
     ``body_fn(params, image)`` runs the conv graph on ``image``: NHWC;
@@ -157,9 +175,19 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     ``device`` in ``dtype``.  Under ``input_format="phases"`` the stem
     conv's entry also holds K2's weights, ``k2_taps`` and ``k2_bias``
     (``ops.kernels.stem_weights``), which ``body_fn`` reads.
+
+    ``spatial_axis`` (``parallel.spatial.Axis`` of more than one rank):
+    every rank of the group calls ``body_fn`` with the whole image, runs
+    the graph on its band of rows and returns the whole output, its
+    bands gathered (the low-res logits before the tail, at most 1.3 MB a
+    bf16 1025x2049 frame); NHWC or NCHW input only.
     """
     if input_format not in ("nhwc", "nchw", "phases"):
         raise ValueError(f"unknown input_format {input_format!r}")
+    if spatial_axis is not None and spatial_axis.size == 1:
+        spatial_axis = None
+    if spatial_axis is not None and input_format == "phases":
+        raise ValueError("input_format='phases' has no spatial sharding")
     dev = resolve_device(device)
     if fold_bn:
         graph, params, state = fold_batchnorm(graph, params, state)
@@ -187,16 +215,7 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
             sp["kernel"], sp.get("bias"), dtype, dev)
     tail_resize = None
     if output == "argmax" and "pred" in graph.nodes:
-        node = graph.node("pred")
-        if node.op == "resize" and node.attrs.get("to_input"):
-            tail_resize = node
-            run_graph = run_graph.copy()
-            run_graph.outputs = [node.inputs[0] if o == "pred" else o
-                                 for o in run_graph.outputs]
-            # the interpreter runs every node: keep the full-resolution
-            # resize, which the tail replaces, out of the body
-            if not run_graph.consumers("pred"):
-                del run_graph.nodes["pred"]
+        run_graph, tail_resize = split_pred_tail(run_graph)
 
     @torch.inference_mode()
     def body_fn(p, image):
@@ -210,15 +229,22 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
         else:
             x = image.permute(0, 3, 1, 2) if input_format == "nhwc" else image
             hw = (int(x.shape[2]), int(x.shape[3]))
-            x = x.to(dev, dtype)
+            x = spatial.shard_rows(x, spatial_axis).to(dev, dtype)
             if dev.type == "cuda":
                 x = x.contiguous(memory_format=torch.channels_last)
             feed = {graph.inputs[0]: x}
         outs, _ = graph_apply(run_graph, p, dev_state, feed,
-                              input_hw=hw, channels_first=True)
+                              input_hw=hw, channels_first=True,
+                              spatial_axis=spatial_axis)
+        name = tail_resize.inputs[0] if tail_resize is not None else "pred"
+        out = outs[name]
+        if spatial_axis is not None:
+            h = infer_shapes(run_graph, hw)[name][0]
+            if out.shape[2] != h:
+                out = spatial.gather_rows(out, h, spatial_axis)
         if tail_resize is not None:
-            return outs[tail_resize.inputs[0]]
-        pred = outs["pred"]
+            return out
+        pred = out
         if output == "argmax":
             return torch.argmax(pred, dim=1).to(torch.uint8)
         return pred.permute(0, 2, 3, 1).float()

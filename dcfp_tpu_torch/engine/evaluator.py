@@ -22,9 +22,14 @@ Arrays come in as NHWC numpy, as in the JAX package.  Across the ranks
 of a data-parallel group (``parallel/mesh.py``) each rank evaluates its
 stride of the split on its own card and the confusion counts are summed
 once, at the end; ``Predictor(mesh=..., shard="data")`` is the rank's own
-Predictor on its device (the data axis is the process axis).  Spatial
-sharding (``shard="spatial"|"both"``) is not ported yet.  The
-``use_aot_*`` hooks take any callable ``run(params, image)``.
+Predictor on its device (the data axis is the process axis).  With
+``shard="spatial"`` or ``"both"`` over a mesh with a spatial axis, the
+ranks of one spatial group take the same images (their data rank's
+stride) and each runs its band of rows of every forward
+(``graph/apply.py``); the low-res logits come back whole to every rank
+of the group, and the label path runs K1 on them; each image is counted
+in the confusion once, by the group's first rank.  The ``use_aot_*``
+hooks take any callable ``run(params, image)``.
 """
 
 from __future__ import annotations
@@ -41,10 +46,13 @@ import torch.nn.functional as F
 
 from dcfp_tpu_torch.data.base import normalize_f32
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
-from dcfp_tpu_torch.engine.deploy import _to_device, make_split_inference_fn
+from dcfp_tpu_torch.engine.deploy import (_to_device, make_split_inference_fn,
+                                          split_pred_tail)
 from dcfp_tpu_torch.graph.apply import graph_apply
-from dcfp_tpu_torch.ops.resize import resize_bilinear
+from dcfp_tpu_torch.graph.shapes import infer_shapes
+from dcfp_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_cf
 from dcfp_tpu_torch.parallel import mesh as pmesh
+from dcfp_tpu_torch.parallel import spatial
 from dcfp_tpu_torch.utils.edge import mask_to_boundary_device
 from dcfp_tpu_torch.utils.logger import get_logger
 from dcfp_tpu_torch.utils.profiling import sync
@@ -218,23 +226,32 @@ class Predictor:
       normalized on the device by :meth:`prep_raw`.
     * ``device`` — None means CUDA (raises without it); ``"cpu"`` runs
       on the CPU.
-    * ``mesh`` + ``shard`` — the JAX package's sharded forward.  With
-      ``shard="data"`` the data axis is the process axis: this is the
-      rank's own Predictor on ``mesh.device``, fed its stride of the
-      split.  ``"spatial"`` and ``"both"`` raise NotImplementedError.
+    * ``mesh`` + ``shard`` — the JAX package's sharded forward.  The
+      data axis is the process axis: this is the rank's own Predictor on
+      ``mesh.device``, fed its data rank's stride of the split.  With
+      ``shard="spatial"`` or ``"both"`` and a mesh with a spatial axis,
+      every forward runs over the rank's spatial group, image height
+      split in bands, each rank called with the same whole images and
+      getting the whole result (logits or labels).  ``counts`` is
+      whether this rank adds its images to the confusion (the spatial
+      group's first rank does).
     """
 
     def __init__(self, graph, params, state, dtype=torch.float32, *,
                  bucket_quantum: int = 0, align_corner: bool = False,
                  mesh=None, shard: str = "data", normalize=None,
                  device: DeviceLike = None):
+        if shard not in ("data", "spatial", "both"):
+            raise ValueError(f"Predictor(shard={shard!r}): data, spatial "
+                             "or both")
+        self.spatial = None
+        self.counts = True
         if mesh is not None:
-            if shard != "data":
-                raise NotImplementedError(
-                    f"Predictor(shard={shard!r}): "
-                    f"{pmesh.SPATIAL_NOT_PORTED}")
             if device is None:
                 device = mesh.device
+            if shard != "data":
+                self.spatial = mesh.spatial
+            self.counts = mesh.spatial_rank == 0
         dev = resolve_device(device)
         self.device = dev
         self.graph = graph
@@ -250,12 +267,14 @@ class Predictor:
             self._norm = tuple(torch.tensor(v, dtype=torch.float32,
                                             device=dev) for v in normalize)
         self._fwd = _CountCompiles(self._graph_logits)
+        if self.spatial is not None:
+            self._band_body = split_pred_tail(graph)
         # label path = the DEPLOY forward: BN folded into convs, then the
         # fused resize-argmax tail (K1) on the low-res logits; the logits
         # path keeps the raw graph the probability-averaging modes need
         abody, atail, adev = make_split_inference_fn(
             graph, params, state, dtype=dtype, fold_bn=True,
-            output="argmax", device=dev)
+            output="argmax", device=dev, spatial_axis=self.spatial)
         self._afn = _CountCompiles(abody)
         self._atail = _CountCompiles(atail) if atail is not None else None
         self._argmax_params = adev
@@ -266,9 +285,30 @@ class Predictor:
     @torch.inference_mode()
     def _graph_logits(self, image: torch.Tensor) -> torch.Tensor:
         """The raw eval-mode graph: NHWC image -> f32 NHWC logits."""
+        if self.spatial is not None:
+            return self._banded_logits(image)
         outs, _ = graph_apply(self.graph, self.params, self.state,
                               {"image": image.to(self.device, self.dtype)})
         return outs["pred"].float()
+
+    def _banded_logits(self, image: torch.Tensor) -> torch.Tensor:
+        """:meth:`_graph_logits` over the spatial group: the graph up to
+        the to-input resize of 'pred' on this rank's band of rows, the
+        bands of its low-res logits gathered, and that resize on the
+        whole map (the one-process resize of the same logits)."""
+        graph, tail = self._band_body
+        name = tail.inputs[0] if tail is not None else "pred"
+        x = image.to(self.device, self.dtype).permute(0, 3, 1, 2)
+        hw = (int(x.shape[2]), int(x.shape[3]))
+        outs, _ = graph_apply(graph, self.params, self.state,
+                              {"image": spatial.shard_rows(x, self.spatial)},
+                              input_hw=hw, channels_first=True,
+                              spatial_axis=self.spatial)
+        z = spatial.gather_rows(outs[name], infer_shapes(graph, hw)[name][0],
+                                self.spatial)
+        if tail is not None:
+            z = resize_bilinear_cf(z, hw, tail.attrs["align_corners"])
+        return z.permute(0, 2, 3, 1).float()
 
     def _split_argmax(self, image):
         z = self._afn(self._argmax_params, image)
@@ -292,10 +332,16 @@ class Predictor:
         return self._fwd(image)
 
     # -- serialized-executable serving (the --use-trt analog) ---------------
+    def _no_spatial(self, what: str) -> None:
+        if self.spatial is not None:
+            raise ValueError(f"{what}: a served artifact runs whole "
+                             "images; it has no spatial sharding")
+
     def use_aot_whole(self, run, aot_params) -> None:
         """Route whole-image forwards through a served deploy callable
         ``run(aot_params, image)`` (argmax output, reference
         evaluate.py:273-276)."""
+        self._no_spatial("use_aot_whole")
         self._fwd = lambda image: run(aot_params, image)
         self._fwd_argmax = self._fwd
 
@@ -306,6 +352,7 @@ class Predictor:
         scatter-add still runs on the device.  Works under multi-scale +
         flip too: undersized border tiles zero-pad (reference
         evaluate.py:166-171)."""
+        self._no_spatial("use_aot_tiles")
         self._aot_tile = (run, aot_params)
 
     def use_aot_scales(self, runs_by_hw: Dict[Tuple[int, int], object],
@@ -314,6 +361,7 @@ class Predictor:
         callables, dispatched by the input's spatial shape (one per
         scale shape, as ``cli.deploy --ms`` exports them; flip runs at
         the same shape)."""
+        self._no_spatial("use_aot_scales")
 
         def fwd(image):
             hw = (int(image.shape[1]), int(image.shape[2]))
@@ -610,7 +658,7 @@ def evaluate(predictor: Predictor, loader: Iterable, *, num_classes: int,
             out = torch.argmax(out, dim=-1)
         seg_pred = out.cpu().numpy().astype(np.uint8)
 
-        if save_predict_dir:
+        if save_predict_dir and predictor.counts:
             os.makedirs(save_predict_dir, exist_ok=True)
             from PIL import Image as PILImage
             palette = (list(np.asarray(cmap, np.uint8).reshape(-1))
@@ -641,11 +689,17 @@ def evaluate(predictor: Predictor, loader: Iterable, *, num_classes: int,
         if (idx + 1) % 25 == 0:
             log.info("eval %d: FPS %.2f img/s", idx + 1, fps)
 
-    return _finalize_eval(cm, fps, result_file, result_tag)
+    return _finalize_eval(cm, fps, result_file, result_tag, predictor.counts)
 
 
 def _finalize_eval(cm: np.ndarray, fps: float,
-                   result_file: Optional[str], result_tag: str) -> Dict:
+                   result_file: Optional[str], result_tag: str,
+                   counts: bool = True) -> Dict:
+    """The metrics of the confusion summed over ranks; a rank that does
+    not count its images (``counts=False``, a spatial group's other
+    ranks) adds zeros."""
+    if not counts:
+        cm = np.zeros_like(cm)
     cm = allreduce_confusion(cm)  # multi-process eval (evaluate.py:370-372)
     result = metrics_from_confusion(cm)
     result["fps"] = fps
@@ -776,4 +830,5 @@ def evaluate_pipelined(predictor: Predictor, loader: Iterable, *,
     flush()  # final fetch synchronizes the whole pipeline
     if t0 is not None and n_timed:
         fps = n_timed / (time.perf_counter() - t0)
-    return _finalize_eval(cm_host, fps, result_file, result_tag)
+    return _finalize_eval(cm_host, fps, result_file, result_tag,
+                          predictor.counts)

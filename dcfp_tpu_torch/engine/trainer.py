@@ -17,6 +17,15 @@ optimizer state stay identical on every rank.  ``TrainLoop`` stops all
 ranks at the same step (a consensus at log boundaries) and snapshots on
 rank 0.
 
+Over a mesh with a spatial axis (``make_train_step(..., mesh=mesh)``)
+the ranks of one spatial group take the same images, and each keeps its
+band of rows of the image, the labels and the weights
+(``expand_batch(..., rows=...)``); the graph, the loss tail and the
+criterion run on the bands (``graph/apply.py``, ``losses/
+criteria.py``), so each rank's loss is still its share of the global
+loss and the same flat gradient sum over the world gives every rank the
+global gradient.
+
 The JAX package's ``compiler_options`` / ``DCFP_XLA_OPTIONS`` pass XLA
 flags to its compiled step; they have no counterpart here.
 """
@@ -36,10 +45,12 @@ from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.engine.optim import (Optimizer, apply_updates,
                                           tree_keys, tree_leaves, tree_of)
 from dcfp_tpu_torch.graph.apply import graph_apply
+from dcfp_tpu_torch.graph.shapes import infer_shapes
 from dcfp_tpu_torch.losses.criteria import Criterion
 from dcfp_tpu_torch.models.heads import SegModel
 from dcfp_tpu_torch.ops.resize import resize_bilinear_cf
-from dcfp_tpu_torch.parallel import mesh
+from dcfp_tpu_torch.parallel import mesh as pmesh
+from dcfp_tpu_torch.parallel import spatial
 from dcfp_tpu_torch.prune.eic import EicState, eic_update, init_eic
 from dcfp_tpu_torch.utils.logger import get_logger
 
@@ -78,19 +89,26 @@ def create_train_state(model: SegModel, params, bn_state,
 
 
 def expand_batch(batch, normalize, num_classes: int, ignore_label: int,
-                 compute_dtype, device: torch.device):
+                 compute_dtype, device: torch.device,
+                 rows: Optional[spatial.Rows] = None):
     """Expand a compact batch (``compact=True`` in the data loaders) on
     ``device``: uint8 RGB images normalize to the classic f32 values (with
     the reference's post-normalize zero padding reproduced from the
     ``pad`` validity triple: valid rows, valid columns, flipped), uint8
     labels widen to int64, and per-image class weight vectors gather
     into the per-pixel GSRL weight map.  Classic f32 batches pass
-    through.  Returns (NHWC image in ``compute_dtype``, labels)."""
+    through.  Returns (NHWC image in ``compute_dtype``, labels).
 
-    def put(x):
+    ``rows``: keep only rows ``[rows.lo, rows.hi)`` of the image, the
+    labels and the weights (cut before the copy to ``device``); the
+    ``pad`` triples stay global row counts."""
+    band = slice(None) if rows is None else slice(rows.lo, rows.hi)
+
+    def put(x, cut=False):
+        x = x[:, band] if cut else x
         return torch.as_tensor(x).to(device, non_blocking=True)
 
-    img = put(batch["img"])
+    img = put(batch["img"], True)
     if img.dtype == torch.uint8:
         if normalize is None:
             raise ValueError("uint8 (compact) batches need "
@@ -103,27 +121,29 @@ def expand_batch(batch, normalize, num_classes: int, ignore_label: int,
         if pad is not None:
             pad = put(pad)
             n, h, w = img.shape[:3]
-            rows = torch.arange(h, device=device)[None, :, None]
+            r0 = 0 if rows is None else rows.lo
+            ys = torch.arange(r0, r0 + h, device=device)[None, :, None]
             cols = torch.arange(w, device=device)[None, None, :]
             hv = pad[:, 0][:, None, None]
             wv = pad[:, 1][:, None, None]
             fl = pad[:, 2][:, None, None]
-            valid = (rows < hv) & torch.where(fl > 0, cols >= w - wv,
-                                              cols < wv)
+            valid = (ys < hv) & torch.where(fl > 0, cols >= w - wv,
+                                            cols < wv)
             x = torch.where(valid[..., None], x, 0.0)
         img = x
     img = img.to(compute_dtype)
     lab = batch["label"]
     if isinstance(lab, dict) and "weight_class" in lab:
-        ori = put(lab["ori"]).long()
+        ori = put(lab["ori"], True).long()
         idx = torch.where(ori == ignore_label, num_classes, ori)
         wc = put(lab["weight_class"])
         weight = torch.gather(wc, 1, idx.flatten(1)).view(idx.shape)
         lab = {"ori": ori, "weight": weight}
     elif isinstance(lab, dict):
-        lab = {"ori": put(lab["ori"]).long(), "weight": put(lab["weight"])}
+        lab = {"ori": put(lab["ori"], True).long(),
+               "weight": put(lab["weight"], True)}
     else:
-        lab = put(lab).long()
+        lab = put(lab, True).long()
     return img, lab
 
 
@@ -131,8 +151,8 @@ def make_train_step(model: SegModel, criterion: Criterion,
                     optimizer: Optimizer, *, eic_r: float = 0.999,
                     compute_dtype=torch.float32, fuse_loss_tail: bool = True,
                     normalize=None, ignore_label: int = 255,
-                    remat_segments: int = 0,
-                    device: DeviceLike = None) -> Callable:
+                    remat_segments: int = 0, device: DeviceLike = None,
+                    mesh: Optional[pmesh.Mesh] = None) -> Callable:
     """Build the train step: ``(state, batch, generator) -> (state,
     {"loss", "grad_norm"})``, both metrics 0-d tensors on the device.
 
@@ -149,9 +169,12 @@ def make_train_step(model: SegModel, criterion: Criterion,
     path.  ``remat_segments`` > 1: recompute the forward's activations
     in that many segments in the backward (see ``graph_apply``), for a
     batch x resolution whose activations would not fit the card.
+    ``mesh`` with a spatial axis: this rank keeps its band of the batch's
+    rows and the step runs on bands (see the module docstring).
     """
     dev = resolve_device(device)
     graph = model.graph
+    axis = mesh.spatial if mesh is not None else None
 
     tails = {}
     run_graph = graph
@@ -162,8 +185,24 @@ def make_train_step(model: SegModel, criterion: Criterion,
         run_graph = graph.copy()
         run_graph.outputs = [graph.node(o).inputs[0] for o in graph.outputs]
 
-    def loss_fn(params, bn_state, img, labels, generator):
-        if tails:
+    def loss_fn(params, bn_state, img, labels, generator, rows):
+        if rows is not None:  # bands, channels-first throughout
+            hw = (rows.h, img.shape[2])
+            outs, new_bn = graph_apply(
+                run_graph, params, bn_state,
+                {"image": img.permute(0, 3, 1, 2)}, train=True,
+                generator=generator, remat_segments=remat_segments,
+                channels_first=True, input_hw=hw, spatial_axis=axis)
+            if tails:
+                heights = infer_shapes(run_graph, hw)
+                outs = {alias: spatial.resize_band(
+                    outs[node.inputs[0]],
+                    spatial.Rows(axis, heights[node.inputs[0]][0]), hw,
+                    node.attrs["align_corners"], axis)
+                    for alias, node in tails.items()}
+            loss = criterion(outs, labels, channels_first=True,
+                             rows=rows)["loss"]
+        elif tails:
             outs, new_bn = graph_apply(
                 run_graph, params, bn_state,
                 {"image": img.permute(0, 3, 1, 2)}, train=True,
@@ -183,16 +222,18 @@ def make_train_step(model: SegModel, criterion: Criterion,
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
+        rows = (spatial.Rows(axis, batch["img"].shape[1])
+                if axis is not None and axis.size > 1 else None)
         img, labels = expand_batch(batch, normalize, model.num_classes,
-                                   ignore_label, compute_dtype, dev)
+                                   ignore_label, compute_dtype, dev, rows)
         keys = tree_keys(state.params)
         leaves = [t.detach().requires_grad_(True)
                   for t in tree_leaves(state.params, keys)]
         loss, new_bn = loss_fn(tree_of(keys, leaves), state.bn_state, img,
-                               labels, generator)
+                               labels, generator, rows)
         flat = torch.autograd.grad(loss, leaves, materialize_grads=True)
         loss = loss.detach()
-        if mesh.world() > 1:
+        if pmesh.world() > 1:
             flat, loss = _sum_over_ranks(list(flat), loss)
         grads = tree_of(keys, flat)
         eic = state.eic
@@ -218,7 +259,7 @@ def _sum_over_ranks(grads, loss):
     loss, bit-identical on every rank."""
     buf = torch.cat([g.reshape(-1).float() for g in grads]
                     + [loss.reshape(1).float()])
-    mesh.all_reduce_(buf)
+    pmesh.all_reduce_(buf)
     out, off = [], 0
     for g in grads:
         out.append(buf[off:off + g.numel()].view(g.shape).to(g.dtype))
@@ -255,6 +296,7 @@ class TrainLoop:
     handle_signals: bool = False  # SIGTERM/SIGINT -> snapshot + return
     metrics_file: Optional[str] = None  # JSONL, one line per log window
     remat_segments: int = 0  # >1: checkpointed segments in the forward
+    mesh: Optional[pmesh.Mesh] = None  # a spatial axis: steps on bands
 
     def run(self, state: TrainState, batches: Iterator[Dict],
             generator: Optional[torch.Generator] = None,
@@ -265,7 +307,8 @@ class TrainLoop:
             self.model, self.criterion, self.optimizer, eic_r=self.eic_r,
             compute_dtype=self.compute_dtype, normalize=self.normalize,
             ignore_label=self.ignore_label,
-            remat_segments=self.remat_segments, device=device)
+            remat_segments=self.remat_segments, device=device,
+            mesh=self.mesh)
         interrupted = {"sig": None}
         restore = {}
         # Across ranks a signal to ONE rank must not make it leave while
@@ -273,8 +316,8 @@ class TrainLoop:
         # stop at log boundaries (a MAX over their flags; every rank
         # reaches the same boundaries), so the stop waits up to
         # log_every steps.
-        multiproc = mesh.world() > 1
-        lead = mesh.rank() == 0
+        multiproc = pmesh.world() > 1
+        lead = pmesh.rank() == 0
         if self.handle_signals:
             def _on_signal(signum, frame):
                 interrupted["sig"] = signum
@@ -338,8 +381,8 @@ class TrainLoop:
                     # boundaries, and no collective elsewhere
                     if boundary and self.handle_signals:
                         flag = torch.tensor([float(stop)],
-                                            device=mesh.collective_device())
-                        stop = mesh.all_reduce_(flag, "max").item() > 0
+                                            device=pmesh.collective_device())
+                        stop = pmesh.all_reduce_(flag, "max").item() > 0
                     else:
                         stop = False
                 in_window = (step + 1) >= self.save_steps

@@ -12,12 +12,25 @@ statistics, draws dropout from an explicit ``torch.Generator`` and can
 recompute its activations in the backward (``remat_segments``).  Across
 the ranks of a data-parallel group (``parallel/mesh.py``) its BN moments
 and dropout masks are those of the global batch.
+
+With a spatial axis (``graph_apply(..., spatial_axis=axis)``) every rank of
+the group holds a band of rows of each activation (``parallel/
+spatial.py``'s band rule over the node's global height, which
+``graph/shapes.py`` gives), and each op computes its band of what one
+process computes on the whole image: convs and the max pool read their
+halo rows from the ranks that hold them, a resize reads the input rows
+its band's interpolation rows touch, and the pools sum their bands over
+the group.  A pool's fixed-size output (the ASPP's 1x1, PSP's bins), and
+whatever is computed from such outputs alone, is held whole by every
+rank of the group ("replicated"); its BN counts it once, on the group's
+first rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,10 +38,11 @@ from torch.utils.checkpoint import checkpoint
 
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.graph.ir import Graph, Node
-from dcfp_tpu_torch.ops.pool import (adaptive_avg_pool, global_avg_pool,
-                                     max_pool)
+from dcfp_tpu_torch.graph.shapes import infer_shapes
+from dcfp_tpu_torch.ops.pool import (_adaptive_matrix, adaptive_avg_pool,
+                                     global_avg_pool, max_pool)
 from dcfp_tpu_torch.ops.resize import resize_bilinear_cf
-from dcfp_tpu_torch.parallel import mesh
+from dcfp_tpu_torch.parallel import mesh, spatial
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 State = Dict[str, Dict[str, torch.Tensor]]
@@ -86,21 +100,96 @@ def init_graph(graph: Graph, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# bands
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Bands:
+    """One run's spatial layout: the axis, every node's global (H, W) and
+    the nodes held whole by every rank of the group."""
+    axis: spatial.Axis
+    hw: Dict[str, Tuple[int, int]]
+    whole: Set[str]
+
+    def rows(self, name: str) -> Optional[spatial.Rows]:
+        """The band layout of node ``name``'s value; None if held whole."""
+        if name in self.whole:
+            return None
+        return spatial.Rows(self.axis, self.hw[name][0])
+
+
+def _bands(graph: Graph, input_hw: Tuple[int, int],
+           axis: spatial.Axis) -> _Bands:
+    """The layout of a run from a banded graph input of global size
+    ``input_hw``.  Raises ValueError, before anything runs, for a banded
+    node with fewer rows than the group has ranks."""
+    hw = infer_shapes(graph, input_hw)
+    whole: Set[str] = set()
+    for node in graph.toposorted():
+        op, a = node.op, node.attrs
+        if op == "input":
+            pass
+        elif op in ("avgpool", "globalpool"):
+            whole.add(node.name)
+        elif op == "resize":
+            src = (a["like"] if "like" in a else None if a.get("to_input")
+                   else node.inputs[0])
+            if src is not None and src in whole:
+                whole.add(node.name)
+        elif all(i in whole for i in node.inputs):
+            whole.add(node.name)
+        if node.name not in whole and hw[node.name][0] < axis.size:
+            raise ValueError(
+                f"node {node.name!r}: {hw[node.name][0]} rows cannot be "
+                f"split over {axis.size} spatial ranks (input "
+                f"{tuple(input_hw)})")
+    return _Bands(axis, hw, whole)
+
+
+# ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
 
-def _conv(x, node: Node, p):
+def _conv(x, node: Node, p, bands: Optional[_Bands] = None):
     # A plain dilated conv at every rate: the JAX package rewrites rates
     # >= 18 as nine shifted matmuls only because the TPU's native dilated
     # conv is slow there; the two are equal up to summation order.
     a = node.attrs
     bias = p["bias"].to(x.dtype) if a["bias"] else None
+    rows = bands.rows(node.inputs[0]) if bands is not None else None
+    if rows is not None:
+        return spatial.halo_conv2d(
+            x, p["kernel"].to(x.dtype), bias, rows, bands.hw[node.name][0],
+            stride=a["stride"], padding=a["padding"],
+            dilation=a["dilation"], groups=a["groups"])
     return F.conv2d(x, p["kernel"].to(x.dtype), bias, stride=a["stride"],
                     padding=a["padding"], dilation=a["dilation"],
                     groups=a["groups"])
 
 
-def _bn(x, node: Node, p, s, train: bool):
+def _avgpool_band(x, rows: spatial.Rows, w: int, out_size: int):
+    """``adaptive_avg_pool`` from a band: the band's columns of the H bin
+    matrix, summed over the group, then the W bins; whole on every
+    rank."""
+    mh = torch.from_numpy(_adaptive_matrix(rows.h, out_size)[
+        :, rows.lo:rows.hi].copy())
+    mw = torch.from_numpy(_adaptive_matrix(w, out_size))
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    xf = torch.einsum("oh,...hw->...ow", mh.to(xf.device, xf.dtype), xf)
+    xf = spatial.spatial_sum(xf, rows.axis)
+    xf = torch.einsum("ow,...hw->...ho", mw.to(xf.device, xf.dtype), xf)
+    return xf.to(x.dtype)
+
+
+def _globalpool_band(x, rows: spatial.Rows):
+    """``global_avg_pool`` from a band: the band sums over the group,
+    over the global H x W; whole on every rank."""
+    total = spatial.spatial_sum(x.float().sum(dim=(-2, -1), keepdim=True),
+                                rows.axis)
+    return (total / (rows.h * x.shape[-1])).to(x.dtype)
+
+
+def _bn(x, node: Node, p, s, train: bool, counted: bool = True):
     """BN in float32.  Returns (y, new running stats or None).
 
     Train mode normalizes with the batch's biased variance over (N, H, W)
@@ -112,11 +201,12 @@ def _bn(x, node: Node, p, s, train: bool):
 
     Across ranks (``parallel.mesh.world() > 1``) the moments are the
     global batch's, as under the JAX package's data-sharded ``jnp.mean``:
-    see :func:`_bn_synced`.
+    see :func:`_bn_synced`; ``counted=False`` on a rank that holds a copy
+    of a value another rank of its spatial group counts.
     """
     a = node.attrs
     if train and mesh.world() > 1:
-        return _bn_synced(x, a, p, s)
+        return _bn_synced(x, a, p, s, counted)
     if train:
         new_s = {"mean": s["mean"].float().clone(),
                  "var": s["var"].float().clone()}
@@ -131,22 +221,25 @@ def _bn(x, node: Node, p, s, train: bool):
     return y.to(x.dtype), None
 
 
-def _bn_synced(x, a, p, s):
+def _bn_synced(x, a, p, s, counted: bool = True):
     """Train-mode BN on the global batch's moments (SyncBN): the mean from
     the summed per-channel sums and the summed count, then the biased
     variance from a second sum, of (x - mean)^2 (E[x^2] - E[x]^2 would
     lose f32 digits the one-process path keeps).  Both sums are
     differentiable, so the backward is SyncBN's; the running variance
-    takes the unbiased correction over the global N*H*W."""
+    takes the unbiased correction over the global N*H*W.  A rank that
+    does not count its ``x`` (``counted=False``) adds zeros, times its
+    values so that the backward still runs every reduce."""
     xf = x.float()
     ch = xf.shape[1]
+    own = 1.0 if counted else 0.0
     local = torch.cat([xf.sum(dim=(0, 2, 3)),
-                       xf.new_full((1,), xf.numel() // ch)])
+                       xf.new_full((1,), xf.numel() // ch)]) * own
     total = mesh.sum_across(local)
     count = total[ch].detach()
     mean = total[:ch] / count
     d = xf - mean[None, :, None, None]
-    var = mesh.sum_across((d * d).sum(dim=(0, 2, 3))) / count
+    var = mesh.sum_across((d * d).sum(dim=(0, 2, 3)) * own) / count
     scale = torch.rsqrt(var + a["eps"]) * p["scale"].float()
     y = d * scale[None, :, None, None] + p["bias"].float()[None, :, None, None]
     m = a["momentum"]
@@ -157,39 +250,58 @@ def _bn_synced(x, a, p, s):
     return y.to(x.dtype), new_s
 
 
-def _dropout(x, node: Node, seed: Optional[int]):
+def _dropout(x, node: Node, seed: Optional[int],
+             bands: Optional[_Bands] = None):
     """Dropout from a mask drawn with ``seed`` on x's device; spatial
     dropout draws one value per (n, c).  The same seed gives the same
     mask, so a recomputed segment replays it.  Across ranks each rank
     draws the mask of the global batch (every rank holds the same number
-    of rows) and keeps its own rows, so W ranks drop what one process
-    drops on the global batch."""
+    of images) and keeps its data rank's images and, under a spatial
+    axis, its band's rows, so the ranks drop what one process drops on
+    the global batch."""
     rate = node.attrs["rate"]
     if seed is None or rate == 0.0:
         return x
     w, r = mesh.world(), mesh.rank()
+    shape = list(x.shape[1:2] + (1, 1) if node.attrs["spatial"]
+                 else x.shape[1:])
+    rows = None
+    if bands is not None:
+        s = bands.axis.size
+        w, r = w // s, r // s
+        rows = bands.rows(node.inputs[0])
+        if rows is not None and not node.attrs["spatial"]:
+            shape[1] = rows.h
+        else:
+            rows = None
     n = x.shape[0]
-    shape = (n * w,) + (x.shape[1:2] + (1, 1) if node.attrs["spatial"]
-                        else x.shape[1:])
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
-    keep = torch.rand(shape, generator=gen, device=x.device)[r * n:(r + 1) * n]
+    keep = torch.rand([n * w] + shape, generator=gen,
+                      device=x.device)[r * n:(r + 1) * n]
+    if rows is not None:
+        keep = keep[:, :, rows.lo:rows.hi]
     keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
                state: State, input_hw: Tuple[int, int], train: bool,
-               drop_seeds: Dict[str, int], bn_updates: State
-               ) -> torch.Tensor:
+               drop_seeds: Dict[str, int], bn_updates: State,
+               bands: Optional[_Bands] = None) -> torch.Tensor:
     """Execute one non-input node (NCHW); a train-mode BN puts its new
-    running statistics in ``bn_updates``."""
+    running statistics in ``bn_updates``.  With ``bands``, on this rank's
+    band (see the module docstring)."""
     op = node.op
+    rows = (bands.rows(node.inputs[0]) if bands is not None and node.inputs
+            else None)
     if op == "conv":
-        return _conv(vals[node.inputs[0]], node, params[node.name])
+        return _conv(vals[node.inputs[0]], node, params[node.name], bands)
     if op == "bn":
+        counted = (bands is None or rows is not None
+                   or bands.axis.index == 0)
         y, ns = _bn(vals[node.inputs[0]], node, params[node.name],
-                    state[node.name], train)
+                    state[node.name], train, counted)
         if ns is not None:
             bn_updates[node.name] = ns
         return y
@@ -211,16 +323,29 @@ def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
         return torch.cat([vals[i] for i in node.inputs], dim=1)
     if op == "maxpool":
         a = node.attrs
+        if rows is not None:
+            return spatial.halo_max_pool2d(
+                vals[node.inputs[0]], rows, bands.hw[node.name][0],
+                a["kernel"], a["stride"], a["padding"])
         return max_pool(vals[node.inputs[0]], a["kernel"], a["stride"],
                         a["padding"])
     if op == "avgpool":
+        if rows is not None:
+            return _avgpool_band(vals[node.inputs[0]], rows,
+                                 bands.hw[node.inputs[0]][1],
+                                 node.attrs["out_size"])
         return adaptive_avg_pool(vals[node.inputs[0]],
                                  node.attrs["out_size"])
     if op == "globalpool":
+        if rows is not None:
+            return _globalpool_band(vals[node.inputs[0]], rows)
         return global_avg_pool(vals[node.inputs[0]])
     if op == "resize":
         x = vals[node.inputs[0]]
         a = node.attrs
+        if bands is not None and node.name not in bands.whole:
+            return spatial.resize_band(x, rows, bands.hw[node.name],
+                                       a["align_corners"], bands.axis)
         if "like" in a:
             target = tuple(vals[a["like"]].shape[-2:])
         elif a.get("to_input"):
@@ -231,7 +356,7 @@ def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
         return resize_bilinear_cf(x, target, a["align_corners"])
     if op == "dropout":
         return _dropout(vals[node.inputs[0]], node,
-                        drop_seeds.get(node.name) if train else None)
+                        drop_seeds.get(node.name) if train else None, bands)
     if op in ("identity", "barrier"):
         # a barrier only steers XLA fusion
         return vals[node.inputs[0]]
@@ -242,7 +367,8 @@ def graph_apply(graph: Graph, params: Params, state: State,
                 inputs: Dict[str, torch.Tensor], *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 input_hw: Optional[Tuple[int, int]] = None,
-                remat_segments: int = 0, channels_first: bool = False
+                remat_segments: int = 0, channels_first: bool = False,
+                spatial_axis: Optional[spatial.Axis] = None
                 ) -> Tuple[Dict[str, torch.Tensor], State]:
     """Run the graph.  Returns ({output_name: tensor}, new_state).
 
@@ -261,6 +387,12 @@ def graph_apply(graph: Graph, params: Params, state: State,
     boundaries are kept for the backward, the rest is recomputed.  The
     recompute replays each dropout node's mask from its seed, so the
     result and the gradients are those of the plain run.
+
+    ``spatial_axis`` (a spatial group of more than one rank): the inputs
+    are this rank's bands of rows (``spatial.band`` of their global
+    height) and so are the outputs, except outputs held whole (see the
+    module docstring); ``input_hw``, the global (H, W) of the graph's
+    input, is then required.  Every rank of the group runs the same call.
     """
     drop_seeds: Dict[str, int] = {}
     drop_nodes = [n.name for n in graph.toposorted() if n.op == "dropout"]
@@ -271,6 +403,12 @@ def graph_apply(graph: Graph, params: Params, state: State,
 
     vals = {k: v if channels_first else v.permute(0, 3, 1, 2)
             for k, v in inputs.items()}
+    bands = None
+    if spatial_axis is not None and spatial_axis.size > 1:
+        if input_hw is None:
+            raise ValueError("graph_apply(spatial_axis=...) needs input_hw, "
+                             "the global (H, W) of the graph input")
+        bands = _bands(graph, tuple(input_hw), spatial_axis)
     if input_hw is None:
         input_hw = tuple(vals[graph.inputs[0]].shape[-2:])
     nodes = [n for n in graph.toposorted() if n.op != "input"]
@@ -298,7 +436,7 @@ def graph_apply(graph: Graph, params: Params, state: State,
         for i in range(first, last):
             node = nodes[i]
             v[node.name] = _exec_node(node, v, params, state, input_hw,
-                                      train, drop_seeds, bn_updates)
+                                      train, drop_seeds, bn_updates, bands)
             for parent in node.inputs:
                 if last_use[parent] == i:
                     v.pop(parent, None)

@@ -20,6 +20,14 @@ add up to the one-process loss on it: CE divides its local weighted sum
 by the global weight sum, GSRL its local sum of per-image terms by the
 global image count, and OHEM's threshold is the k-th value over every
 rank's probabilities.  In a world of 1 each is the plain loss.
+
+Under a spatial axis (``rows=spatial.Rows(axis, H)``: the logits, labels
+and weights are this rank's band of rows of images of global height H)
+the same sums count each pixel once, on the rank that holds it.  What
+reads across rows swaps rows with the group (GSRL's 9x9 max pool of the
+weights, OHEM's down-sampled copy), and GSRL's per-image sums are summed
+over the group first; the group's first rank then adds each image's
+term, the others add zeros.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from dcfp_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_cf
-from dcfp_tpu_torch.parallel import mesh
+from dcfp_tpu_torch.parallel import mesh, spatial
 
 
 def _take_class(x: torch.Tensor, safe_labels: torch.Tensor,
@@ -86,13 +94,14 @@ def _zoom0_indices(n: int, m: int) -> np.ndarray:
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                        ignore_label: int = 255, thresh: float = 0.7,
                        min_kept: int = 100000, factor: int = 8,
-                       class_weights=None,
-                       channels_first: bool = False) -> torch.Tensor:
+                       class_weights=None, channels_first: bool = False,
+                       rows: Optional[spatial.Rows] = None) -> torch.Tensor:
     """Online hard example mining CE (reference loss/ohem.py:9-93): CE
     over the pixels that :func:`ohem_threshold_and_mined` keeps."""
     _, mined = ohem_threshold_and_mined(
         logits, labels, ignore_label=ignore_label, thresh=thresh,
-        min_kept=min_kept, factor=factor, channels_first=channels_first)
+        min_kept=min_kept, factor=factor, channels_first=channels_first,
+        rows=rows)
     return cross_entropy(logits, mined, ignore_label=ignore_label,
                          class_weights=class_weights,
                          channels_first=channels_first)
@@ -100,7 +109,8 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
 
 def ohem_threshold_and_mined(logits, labels, *, ignore_label: int = 255,
                              thresh: float = 0.7, min_kept: int = 100000,
-                             factor: int = 8, channels_first: bool = False):
+                             factor: int = 8, channels_first: bool = False,
+                             rows: Optional[spatial.Rows] = None):
     """(threshold, mined_labels), the mining half of OHEM.
 
     The threshold is the k-th smallest true-class probability among the
@@ -111,23 +121,55 @@ def ohem_threshold_and_mined(logits, labels, *, ignore_label: int = 255,
     true-class probability is above it become ``ignore_label``.  Across
     ranks (each with the same batch shape) the k-th value is taken over
     every rank's copy, gathered, so the threshold is the global batch's.
+    Under ``rows`` (channels-first only) each rank builds its band of the
+    copy, from the probability and label rows that band reads, and pads
+    its share of the gathered values with +inf to the longest band's.
     """
     probs = F.softmax(logits.float(), dim=1 if channels_first else -1)
     probs = probs.detach()
 
-    h, w = labels.shape[1], labels.shape[2]
+    n, h, w = labels.shape
+    if rows is not None:
+        if not channels_first:
+            raise ValueError("a banded OHEM takes channels-first logits")
+        h = rows.h
     out_h = max(int(round(h / factor)), 1)  # scipy: int(round(dim*zoom))
     out_w = max(int(round(w / factor)), 1)
-    small_probs = (resize_bilinear_cf if channels_first else resize_bilinear)(
-        probs, (out_h, out_w), align_corners=True)
-    rows = torch.from_numpy(_zoom0_indices(h, out_h)).to(labels.device)
+    ridx = _zoom0_indices(h, out_h)
     cols = torch.from_numpy(_zoom0_indices(w, out_w)).to(labels.device)
-    small_labels = labels[:, rows][:, :, cols]
+    if rows is None:
+        small_probs = (resize_bilinear_cf if channels_first
+                       else resize_bilinear)(probs, (out_h, out_w),
+                                             align_corners=True)
+        small_labels = labels[:, torch.from_numpy(ridx).to(labels.device)]
+        flat_len = n * out_h * out_w
+    else:
+        axis = rows.axis
+        if out_h < axis.size:
+            raise ValueError(f"OHEM's {out_h}-row copy cannot be split "
+                             f"over {axis.size} spatial ranks")
+        small_probs = spatial.resize_band(probs, rows, (out_h, out_w), True,
+                                          axis)
+        ranges = [(int(ridx[a]), int(ridx[b - 1]) + 1)
+                  for a, b in axis.bands(out_h)]
+        a, b = axis.band(out_h)
+        got = spatial.fetch_rows(labels, ranges, h, axis)
+        lo = ranges[axis.index][0]
+        small_labels = got[:, torch.from_numpy(ridx[a:b] - lo).to(
+            labels.device)]
+        flat_len = n * -(-out_h // axis.size) * out_w  # the longest band
+    small_labels = small_labels[:, :, cols]
     valid_s = small_labels != ignore_label
     safe_s = torch.where(valid_s, small_labels, 0).long()
     p_true_s = _take_class(small_probs, safe_s, channels_first)
-    flat = mesh.all_gather(torch.where(valid_s, p_true_s, torch.inf).flatten())
-    k = max(min(min_kept // (factor * factor), flat.numel()), 1)
+    mine = torch.where(valid_s, p_true_s, torch.inf).flatten()
+    if mine.numel() < flat_len:
+        mine = torch.cat([mine, mine.new_full((flat_len - mine.numel(),),
+                                              torch.inf)])
+    flat = mesh.all_gather(mine)
+    n_data = mesh.world() // (rows.axis.size if rows is not None else 1)
+    k = max(min(min_kept // (factor * factor), n_data * n * out_h * out_w),
+            1)
     kth = torch.kthvalue(flat, k).values
     num_valid = mesh.all_reduce_(valid_s.sum())
     one = torch.ones((), device=kth.device)
@@ -149,13 +191,19 @@ def ohem_threshold_and_mined(logits, labels, *, ignore_label: int = 255,
 def gsrl_loss_terms(logits: torch.Tensor, labels_ori: torch.Tensor,
                     pixel_weight: torch.Tensor, *, ignore_label: int,
                     k: int = 9, gamma: float = 9.0,
-                    channels_first: bool = False) -> torch.Tensor:
+                    channels_first: bool = False,
+                    rows: Optional[spatial.Rows] = None) -> torch.Tensor:
     """Shared GSRL weight map (criterion.py:86-93): the kxk max-pool
     dilation of the per-pixel class weight (padded with -inf) times a
     softmax-margin calibration factor, zero at ignored pixels, without
-    gradient."""
-    w = F.max_pool2d(pixel_weight.float().unsqueeze(1), k, stride=1,
-                     padding=k // 2).squeeze(1)
+    gradient.  Under ``rows`` the pool reads k // 2 rows past the band
+    from the ranks that hold them."""
+    pw = pixel_weight.float().unsqueeze(1)
+    if rows is None:
+        w = F.max_pool2d(pw, k, stride=1, padding=k // 2).squeeze(1)
+    else:
+        w = spatial.halo_max_pool2d(pw, rows, rows.h, k, 1,
+                                    k // 2).squeeze(1)
     score = F.softmax(logits.float(), dim=1 if channels_first else -1)
     top2 = torch.topk(score, 2, dim=1 if channels_first else -1).values
     margin = top2.select(1 if channels_first else -1, 0) - \
@@ -166,14 +214,24 @@ def gsrl_loss_terms(logits: torch.Tensor, labels_ori: torch.Tensor,
 
 
 def _gsrl_weighted_ce(logits, labels_ori, weight, ignore_label,
-                      channels_first=False):
+                      channels_first=False, rows=None):
     nll, _ = _per_pixel_ce(logits, labels_ori, ignore_label, channels_first)
     num = torch.sum(nll * weight, dim=(1, 2))
-    den = torch.sum(weight, dim=(1, 2)) + 1e-8
+    den = torch.sum(weight, dim=(1, 2))
+    if rows is not None:  # an image's sums over its bands
+        num = spatial.spatial_sum(num, rows.axis)
+        den = spatial.spatial_sum(den, rows.axis)
+    den = den + 1e-8
     if mesh.world() == 1:
         return torch.mean(num / den)
+    terms = torch.sum(num / den)
     n = mesh.all_reduce_(num.new_full((), num.shape[0]))
-    return torch.sum(num / den) / n  # the global batch's mean
+    if rows is not None:
+        # each image once, by the group's first rank; the zeros keep the
+        # others' backward through the group sum
+        terms = terms * (1.0 if rows.axis.index == 0 else 0.0)
+        n = n / rows.axis.size
+    return terms / n  # the global batch's mean
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +250,11 @@ class Criterion:
     fn: Callable
     name: str
 
-    def __call__(self, preds, labels, *,
-                 channels_first: bool = False) -> Dict[str, torch.Tensor]:
-        return self.fn(preds, labels, channels_first=channels_first)
+    def __call__(self, preds, labels, *, channels_first: bool = False,
+                 rows: Optional[spatial.Rows] = None
+                 ) -> Dict[str, torch.Tensor]:
+        return self.fn(preds, labels, channels_first=channels_first,
+                       rows=rows)
 
 
 def _labels_ori(labels):
@@ -205,7 +265,7 @@ def ce_dsn(ignore_label: int = 255, ds_weight: float = 0.4,
            class_weights=None) -> Criterion:
     """CE + auxiliary deep-supervision CE (criterion.py:48-74)."""
 
-    def fn(preds, labels, channels_first=False):
+    def fn(preds, labels, channels_first=False, rows=None):
         y = _labels_ori(labels)
         loss = cross_entropy(preds["pred"], y, ignore_label=ignore_label,
                              class_weights=class_weights,
@@ -224,13 +284,13 @@ def ohem_dsn(ignore_label: int = 255, ds_weight: float = 0.4,
              class_weights=None) -> Criterion:
     """OHEM main head + plain CE deepsup (ohem.py:95-119)."""
 
-    def fn(preds, labels, channels_first=False):
+    def fn(preds, labels, channels_first=False, rows=None):
         y = _labels_ori(labels)
         loss = ohem_cross_entropy(preds["pred"], y,
                                   ignore_label=ignore_label,
                                   thresh=ohem_thres, min_kept=ohem_keep,
                                   class_weights=class_weights,
-                                  channels_first=channels_first)
+                                  channels_first=channels_first, rows=rows)
         if "deepsup" in preds:
             loss = loss + ds_weight * cross_entropy(
                 preds["deepsup"], y, ignore_label=ignore_label,
@@ -245,15 +305,16 @@ def gsrl_dsn(ignore_label: int = 255, ds_weight: float = 0.4, k: int = 9,
     """Distribution-calibrated loss (criterion.py:77-101).  Requires dict
     labels {'ori','weight'} from a balance-enabled dataset."""
 
-    def fn(preds, labels, channels_first=False):
+    def fn(preds, labels, channels_first=False, rows=None):
         y, pw = labels["ori"], labels["weight"]
         w = gsrl_loss_terms(preds["pred"], y, pw, ignore_label=ignore_label,
-                            k=k, gamma=gamma, channels_first=channels_first)
+                            k=k, gamma=gamma, channels_first=channels_first,
+                            rows=rows)
         loss = _gsrl_weighted_ce(preds["pred"], y, w, ignore_label,
-                                 channels_first)
+                                 channels_first, rows)
         if "deepsup" in preds:
             loss = loss + ds_weight * _gsrl_weighted_ce(
-                preds["deepsup"], y, w, ignore_label, channels_first)
+                preds["deepsup"], y, w, ignore_label, channels_first, rows)
         return {"loss": loss}
 
     return Criterion(fn, "gsrl")
@@ -262,11 +323,11 @@ def gsrl_dsn(ignore_label: int = 255, ds_weight: float = 0.4, k: int = 9,
 def combined(criterions) -> Criterion:
     """Sum of criteria for comma-joined loss types (criterion.py:30-45)."""
 
-    def fn(preds, labels, channels_first=False):
+    def fn(preds, labels, channels_first=False, rows=None):
         total = 0.0
         for c in criterions:
-            total = total + c(preds, labels,
-                              channels_first=channels_first)["loss"]
+            total = total + c(preds, labels, channels_first=channels_first,
+                              rows=rows)["loss"]
         return {"loss": total}
 
     return Criterion(fn, "+".join(c.name for c in criterions))

@@ -437,16 +437,17 @@ def test_evaluate_use_aot_equals_jit(runs, argmax_export, tmp_path, mode):
 @pytest.mark.parametrize("name,flags", [
     ("train", ["--num-devices", "3"]), ("train", ["--spatial-shards", "2"]),
     ("train", ["--dcn-slices", "2"]), ("train", ["--distributed", "true"]),
-    ("evaluate", ["--eval-shard", "spatial"]),
+    ("evaluate", ["--eval-shard", "spatial", "--spatial-shards", "2"]),
     ("evaluate", ["--distributed", "true"]),
     ("evaluate_test", ["--distributed", "true"])])
 def test_mesh_and_distributed_flags_raise_before_writing(runs, tmp_path,
                                                          name, flags):
     """Flags the port refuses, before it writes a file or starts a
-    process: spatial sharding (not ported), a global batch of 2 over 3
-    processes, a data axis of 1 over 2 slices, and ``--distributed true``
-    without a coordinator (multi-process runs themselves are
-    tests/test_torch_parallel.py's)."""
+    process: 2 spatial shards over one process, a global batch of 2
+    over 3 processes, a data axis of 1 over 2 slices, and
+    ``--distributed true`` without a coordinator (multi-process runs
+    themselves are tests/test_torch_parallel.py's and
+    tests/test_torch_spatial.py's)."""
     out = tmp_path / "out"
     argv = {"train": MODEL + TRAIN + ["--snapshot-dir", str(out),
                                       "--num-steps", "1"],
@@ -454,10 +455,10 @@ def test_mesh_and_distributed_flags_raise_before_writing(runs, tmp_path,
             "evaluate_test": MODEL + ["--data-dir", "test",
                                       "--restore-from", runs["ft"],
                                       "--output-dir", str(out)]}[name]
-    if "--spatial-shards" in flags or "spatial" in flags:
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    if name == "evaluate" and "--spatial-shards" in flags:
+        with pytest.raises(ValueError, match="does not divide"):
             CLIS[name][1].main(argv + flags)
-    elif "--num-devices" in flags:
+    elif "--num-devices" in flags or "--spatial-shards" in flags:
         with pytest.raises(SystemExit):  # the parser's error
             CLIS[name][1].main(argv + flags)
     else:

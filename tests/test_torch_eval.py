@@ -500,18 +500,26 @@ def test_served_callable_hooks():
 
 
 def test_not_ported_parts_raise(monkeypatch):
-    """The spatially sharded Predictor raises instead of running on one
-    device; the data-sharded one is the rank's own Predictor on the
-    mesh's device; the confusion reduce is the identity in one process
-    and an exact int64 sum across processes."""
+    """On a mesh of one rank every shard is the rank's own Predictor on
+    the mesh's device, counting its images (the spatial one's forward is
+    the plain one, its axis of one rank splitting nothing), and an
+    unknown shard raises; the confusion reduce is the identity in one
+    process and an exact int64 sum across processes.  Spatial groups of
+    more ranks are tests/test_torch_spatial.py's."""
     from dcfp_tpu_torch.parallel.mesh import create_mesh
     pair = Pair("pointwise")
     mesh = create_mesh(device="cpu")
-    for shard in ("spatial", "both"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=mesh, shard=shard)
-    pred = tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=mesh, shard="data")
-    assert pred.device == torch.device("cpu")
+    img = np.random.default_rng(0).standard_normal(
+        (1, 9, 11, 3)).astype(np.float32)
+    want = pair.port().predict_whole(img).numpy()
+    for shard in ("data", "spatial", "both"):
+        pred = tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=mesh,
+                             shard=shard)
+        assert pred.device == torch.device("cpu") and pred.counts
+        assert pred.spatial is None
+        np.testing.assert_array_equal(pred.predict_whole(img).numpy(), want)
+    with pytest.raises(ValueError, match="shard"):
+        tev.Predictor(pair.tg, pair.tp, pair.ts, mesh=mesh, shard="rows")
     cm = np.eye(C)
     assert tev.allreduce_confusion(cm) is cm
     dist = torch.distributed

@@ -62,10 +62,11 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|dcfp_tpu)(?:\.|\s|$)",
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "pair_times.py", "k3_parts.py", "k46_parts.py",
-       "train_probe.py", "bench_torch.py", "tests/torch_parallel_worker.py"]))
+       "train_probe.py", "bench_torch.py", "tests/torch_parallel_worker.py",
+       "tests/torch_spatial_worker.py"]))
 def test_source_has_no_jax_import(path):
-    """No port source (``parallel/`` included), root script or the
-    multi-process test's worker imports JAX or the JAX package."""
+    """No port source (``parallel/`` included), root script or worker of
+    the multi-process tests imports JAX or the JAX package."""
     src = (REPO / path).read_text()
     assert not _IMPORT.findall(src), f"{path} imports {_IMPORT.findall(src)}"
 

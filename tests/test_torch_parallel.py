@@ -333,14 +333,16 @@ def test_stop_consensus(runs):
 # ---------------------------------------------------------------------------
 
 def test_mesh_helpers(runs):
-    """create_pod_mesh's shapes and validation, process_batch_slice,
-    replicate_tree (rank 0's values everywhere), all_gather, and
-    sum_across with its SyncBN backward."""
+    """create_pod_mesh's shapes and validation (a 1 x 2 spatial mesh,
+    rank r its spatial rank r), process_batch_slice, replicate_tree
+    (rank 0's values everywhere), all_gather, and sum_across with its
+    SyncBN backward."""
     for r, npz in enumerate(runs["ranks"]):
         assert int(npz["e/world"]) == 2 and int(npz["e/rank"]) == r
         assert npz["e/pod_mesh"].tolist() == [2, 1, r]
         assert npz["e/pod_mesh_dcn2"].tolist() == [2, 1]
-        assert npz["e/validation_raised"].tolist() == [True, True, True]
+        assert npz["e/pod_mesh_spatial"].tolist() == [1, 2, r, 0, r]
+        assert npz["e/validation_raised"].tolist() == [True, True]
         assert npz["e/batch_slice"].tolist() == [4 * r, 4 * r + 4]
         assert npz["e/replicated"].tolist() == [1.0, 1.0, 1.0]
         assert npz["e/gather"].tolist() == [0.0, 1.0]
@@ -384,15 +386,20 @@ def test_cli_spawned_equals_distributed(runs, name):
 
 
 @pytest.mark.parametrize("name,flags,exc", [
-    ("train", ["--spatial-shards", "2"], NotImplementedError),
+    ("train", ["--num-devices", "2", "--spatial-shards", "3"], SystemExit),
     ("train", ["--num-devices", "2", "--batch-size", "3"], SystemExit),
-    ("evaluate", ["--eval-shard", "spatial"], NotImplementedError),
-    ("evaluate", ["--eval-shard", "both"], NotImplementedError)])
+    ("train", ["--num-devices", "4", "--spatial-shards", "2",
+               "--batch-size", "3"], SystemExit),
+    ("evaluate", ["--eval-shard", "spatial", "--num-devices", "2",
+                  "--spatial-shards", "3"], ValueError),
+    ("evaluate", ["--eval-shard", "both", "--num-devices", "4",
+                  "--spatial-shards", "3"], ValueError)])
 def test_cli_refusals_before_writing(tmp_path, monkeypatch, name, flags,
                                      exc):
-    """Spatial sharding raises, naming its ROADMAP item, and a global
-    batch that does not divide over the processes is a parser error,
-    each before any file is written or any process started."""
+    """A spatial axis that does not divide the processes, and a global
+    batch that does not divide over the data axis (the processes over
+    the spatial axis), are refused, the train CLI's by its parser, each
+    before any file is written or any process started."""
     monkeypatch.setenv("DCFP_PLATFORM", "cpu")
     out = tmp_path / "out"
     argv = {"train": CLI_TRAIN + ["--snapshot-dir", str(out)],
@@ -401,6 +408,6 @@ def test_cli_refusals_before_writing(tmp_path, monkeypatch, name, flags,
     main = {"train": t_train.main, "evaluate": t_evaluate.main}[name]
     with pytest.raises(exc) as info:
         main(argv + flags)
-    if exc is NotImplementedError:
-        assert "queue 1, item 7" in str(info.value)
+    if exc is ValueError:
+        assert "does not divide" in str(info.value)
     assert not out.exists()
