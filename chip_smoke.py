@@ -43,7 +43,20 @@ exits non-zero without them.  Phases, each of which raises on failure:
    also on shapes off every tile of theirs (K6 with Cm 80 and W below a
    tile; K4 with W below a tile and with tiles whose d = 36 branch keeps
    only its centre tap);
-7. the train step (``phase_train``), which launches none of K1-K6: one
+7. the int8 PTQ deploy (``phase_int8``) of the served pruned R101 at
+   1025x2049, bf16 compute, calibrated on 4 seeded images: the int32
+   accumulators of five convs (stem, 1x1, strided, dilation 36, the
+   ASPP projection) through K5 equal to the float64 conv of the same
+   int8 input; on 4 requests K5 once an int8 conv (115 a frame) and K1
+   once a frame; labels against the bf16 deploy's (agreement >= 0.9);
+   both timed with the ``totrt.py`` protocol, and a device profile of
+   the int8 request;
+8. the forward-traced prune topology (``phase_prune_trace``): the
+   flagship train graph traced at 512x512 on fake tensors
+   (``prune/fx_trace.py``), no mismatch against the IR trace; prune.sh's
+   command with ``--trace verify`` and with ``--trace ir`` on one
+   snapshot, byte-equal files;
+9. the train step (``phase_train``), which launches none of K1-K6: one
    flagship (DeepLabV3-R50, deepsup) GSRL + EIC + SGD step on the card
    against the same step on the CPU (batch 2, 65x65, f32, TF32 off),
    held against the CPU step's own rounding noise; the finetune recipe
@@ -51,7 +64,7 @@ exits non-zero without them.  Phases, each of which raises on failure:
    ``TrainLoop`` for 6 steps, with PyTorch's default TF32 setting: ms a
    step, img/s, peak memory, losses, grad norms, EIC; and one step with
    ``remat_segments=4`` against one without (batch 2, 129x129), equal;
-8. eval (``phase_eval``): the flagship DeepLabV3-R50 (random weights,
+10. eval (``phase_eval``): the flagship DeepLabV3-R50 (random weights,
    seed 0) over four seeded 1024x2048 images fed in memory and taken in
    turn, through ``engine/evaluator.py``: (a) the deploy eval (bf16,
    whole, ss, padded to 1025x2049) in the protocol loop, the pipelined
@@ -64,7 +77,7 @@ exits non-zero without them.  Phases, each of which raises on failure:
    (d) boundary IoU (46 erosions);
    (e) each mode again at 125x250, f32, TF32 off, card against CPU,
    labels differing only at near-ties; one ``{"eval": ...}`` JSON line;
-9. the recipe through files (``phase_data``), the flagship R50 at full
+11. the recipe through files (``phase_data``), the flagship R50 at full
    width, random weights: a 1024x2048 Cityscapes fixture on disk (16
    train, 16 val images) and its label index; pretrain.sh's item path
    (CE + EIC, classic f32 items through the native augment tail, batch
@@ -80,7 +93,7 @@ exits non-zero without them.  Phases, each of which raises on failure:
    processes, each confusion identical to the protocol loop's over the
    images decoded once into memory, K1 once an image; the loaders' rates
    alone; one ``{"data": ...}`` JSON line;
-10. the entry points (``phase_cli``): the Cityscapes scripts' commands
+12. the entry points (``phase_cli``): the Cityscapes scripts' commands
     through the CLIs' ``main`` on a 1024x2048 fixture of 8 train and 8
     val frames (label_index, pretrain, prune, finetune, evaluate,
     deploy in bf16 and f32, evaluate f32 and ``--use-aot`` on both
@@ -93,7 +106,7 @@ exits non-zero without them.  Phases, each of which raises on failure:
     and, in a fresh process, with autotuning off as it ran before; then
     ``bench_torch.py`` in a child process,
     its JSON line parsed and held; one ``{"cli": ...}`` line;
-11. data parallel across processes (``phase_dist``): 2 ranks of the
+13. data parallel across processes (``phase_dist``): 2 ranks of the
     flagship R50 (NCCL on two cards, else both over gloo on the one
     card), GSRL + EIC + SGD with dropout at a global batch of 4 x 769^2:
     step 1 (TF32 off) against one process's step on the global batch by
@@ -102,7 +115,7 @@ exits non-zero without them.  Phases, each of which raises on failure:
     of 8 seeded 1024x2048 frames split over the ranks, its summed
     confusion equal to one process's, K1 once a frame on each rank; one
     ``{"dist": ...}`` line;
-12. spatial sharding (``phase_spatial``): a 1 x 2 mesh (2 x 2 over NCCL
+14. spatial sharding (``phase_spatial``): a 1 x 2 mesh (2 x 2 over NCCL
     on four cards or more; else both ranks over gloo on the one card),
     image height split over the spatial ranks, on the flagship R50:
     GSRL + EIC + SGD with dropout at a global batch of 2 x 769^2, step 1
@@ -114,9 +127,9 @@ exits non-zero without them.  Phases, each of which raises on failure:
     against one fresh process's, flipping at near-ties no more than
     twice as often as one process flips between two sets of cuDNN plans;
     one ``{"spatial": ...}`` line;
-13. one JSON line with every ported kernel: launches on its path, its
+15. one JSON line with every ported kernel: launches on its path, its
     check, its time beside its bound, plain and library times;
-14. last line: ``{"ok": true, "device": {...}}``.
+16. last line: ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -146,7 +159,8 @@ from dcfp_tpu_torch.data.loader import (EvalLoader, TrainLoader, _fork_ctx,
 from dcfp_tpu_torch.data.synthetic import make_cityscapes_fixture
 from dcfp_tpu_torch.engine.deploy import (benchmark, fold_batchnorm,
                                           make_inference_fn,
-                                          make_split_inference_fn)
+                                          make_split_inference_fn,
+                                          split_pred_tail)
 from dcfp_tpu_torch.engine.evaluator import Predictor, evaluate, pad_inf
 from dcfp_tpu_torch.engine.optim import build_optimizer
 from dcfp_tpu_torch.engine.trainer import (TrainLoop, create_train_state,
@@ -1349,6 +1363,8 @@ def _kernel_class(name):
         return "K2 stem_conv3x3_s2"
     if "bottleneck_kernel" in low:
         return "K3 fused_bottleneck"
+    if "::mm_kernel<" in low or "::transpose_kernel<" in low:
+        return "K5 tiled_mm"  # csrc/int8_mm.cu: the product, b's transpose
     if any(t in low for t in ("conv", "fprop", "cudnn")):
         return "convolution"
     if any(t in low for t in ("gemm", "gemv", "nvjet")):
@@ -1513,7 +1529,8 @@ def phase_serve():
         "max_memory_allocated_bytes": peak,
     }
     log("[serve] " + json.dumps(summary))
-    return launches, serve_check, phases, k4_case
+    return (launches, serve_check, phases, k4_case,
+            (result.graph, pparams, pstate))
 
 
 def phase_serve_phases(graph, pparams, pstate, images, nchw_answers):
@@ -1578,6 +1595,250 @@ def phase_serve_phases(graph, pparams, pstate, images, nchw_answers):
     profile_requests(lambda: fn(dev_params, requests[1]), tag=" phases")
     return {"launches": launches, "agreement": agreement,
             "k2_max_abs_err": err, "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+# the int8 deploy (K5 on every conv, K1 tail) and the forward-traced prune
+# ---------------------------------------------------------------------------
+
+INT8_CALIB = 4  # seeded calibration images
+INT8_FRAMES = 4  # requests of the main path
+
+
+def _int8_checked_convs(graph):
+    """Convs whose accumulators ``phase_int8`` holds exactly against the
+    plain float64 conv: the stem's first (K = 27 -> 32 columns), the
+    first 1x1, the most dilated 3x3, a strided one after the stem and
+    the projection over a concat."""
+    convs = list(graph.conv_nodes())
+    picked = {convs[0].name}
+    picked.add(next(c.name for c in convs if c.attrs["kernel"] == 1))
+    picked.add(max(convs, key=lambda c: c.attrs["dilation"]).name)
+    picked.add(next(c.name for c in convs[1:] if c.attrs["stride"] > 1))
+    cat = [c.name for c in convs if graph.node(c.inputs[0]).op == "concat"]
+    picked.update(cat[:1])
+    return [c for c in convs if c.name in picked]
+
+
+def phase_int8(served=None, device="cuda", hw=MAIN_OUT, frames=INT8_FRAMES,
+               calib=INT8_CALIB, iters=50):
+    """The int8 PTQ deploy (``engine/quantize.py``) of the served pruned
+    R101 (``phase_serve``'s model; built here when ``served`` is None) at
+    1025x2049, batch 1, bf16 compute: BN folded, calibrated on ``calib``
+    seeded images (absmax), weights per output channel.  Checks, on one
+    frame, the int32 accumulators of ``_int8_checked_convs`` through K5
+    equal to the plain float64 conv of the same int8 input; then the
+    main path, ``frames`` requests with the counts set to 0 before: K5
+    once per quantized conv of each frame (> 0), K1 once a frame, labels
+    of 19 classes at most that vary; the int8 labels' agreement with the
+    bf16 deploy's (``make_inference_fn``, autotuned) on the same frames
+    (>= 0.9), and both timed with the totrt.py protocol (10 warmup + 50
+    timed, median of 3 blocks); a device profile of 3 int8 requests.
+    Prints one ``{"int8": ...}`` line.
+    ``device="cpu"`` with a small ``hw`` dry-runs it on the CPU."""
+    from dcfp_tpu_torch.engine import quantize as q
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    card = _card_line() if cuda else "cpu"
+    if served is None:
+        model = build_model("deeplabv3", **R101_CFG)
+        params, state = init_graph(model.graph,
+                                   torch.Generator().manual_seed(0),
+                                   device=device)
+        params["last_conv.6"]["bias"].zero_()
+        rng = np.random.default_rng(0)
+        eic = {bn: np.abs(rng.standard_normal(
+            model.graph.node(bn).attrs["channels"])).astype(np.float32)
+            for bn in prunable_bn_names(model.graph)}
+        res, _, _ = prune_to_flops(
+            model.graph, model.graph, *params_to_numpy(params, state), eic,
+            prune_ratio=0.5, layer_keep=0.02, except_start_keys=(),
+            channel_align=128)
+        served = (res.graph, *params_from_numpy(res.params, res.state,
+                                                device=device))
+    graph, pparams, pstate = served
+    rng = np.random.default_rng(8)
+
+    def image():
+        x = rng.uniform(-1, 1, (1,) + tuple(hw) + (3,)).astype(np.float32)
+        return torch.from_numpy(x).to(device)
+
+    calib_images = [image().cpu().numpy() for _ in range(calib)]
+    t0 = time.perf_counter()
+    fn, bundle = q.make_int8_inference_fn(
+        graph, pparams, pstate, calib_batches=calib_images,
+        output="argmax", compute_dtype=torch.bfloat16, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_q = len(bundle["q"])
+    n_conv = len(list(graph.conv_nodes()))
+    requests = [image() for _ in range(frames)]
+
+    # -- the accumulators of a few convs, K5 against the float64 conv
+    fg, _, fs = fold_batchnorm(graph, pparams, pstate)
+    body, _ = split_pred_tail(fg)
+    checked = _int8_checked_convs(fg)
+    want_inputs = {c.inputs[0] for c in checked}
+    seen = {}
+
+    def observe(name, value):
+        if name in want_inputs:
+            seen[name] = value
+
+    scales = bundle["scales"]
+    q.quant_graph_apply(body, bundle["f"], fs, bundle["q"],
+                        {body.inputs[0]: requests[0]},
+                        compute_dtype=torch.bfloat16, tensor_scales=scales,
+                        observe=observe)
+    acc_check = {}
+    for c in checked:
+        x_q = q._to_q(seen[c.inputs[0]], scales[c.inputs[0]])
+        got = q.qconv_acc(x_q, bundle["q"][c.name], c.attrs)
+        ref = q._qconv_plain(x_q, bundle["q"][c.name]["w_q"], c.attrs)
+        if got.dtype != torch.int32 or not torch.equal(got, ref):
+            raise AssertionError(f"int8: conv {c.name} accumulators differ "
+                                 "from the plain float64 conv")
+        a = c.attrs
+        acc_check[c.name] = {
+            "k": a["kernel"], "s": a["stride"], "d": a["dilation"],
+            "cin": a["in_ch"], "cout": a["out_ch"],
+            "rows": int(got.shape[0] * got.shape[2] * got.shape[3]),
+            "max_abs_acc": int(got.abs().max())}
+    del seen
+    log(f"[int8] {n_q} of {n_conv} convs int8, setup (fold, calibrate on "
+        f"{calib}, quantize) {setup_s:.2f} s; accumulators equal to the "
+        f"float64 conv: {json.dumps(acc_check)}")
+
+    # -- the main path: counts from 0, the requests, counts read after
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    answers = []
+    for i, x in enumerate(requests):
+        before = dict(kernels.LAUNCHES)
+        labels = fn(bundle, x)
+        d = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        if cuda and (d["tiled_mm"] != n_q or d["resize_argmax"] != 1
+                     or any(v for k, v in d.items()
+                            if k not in ("tiled_mm", "resize_argmax"))):
+            raise AssertionError(f"int8 request {i}: launches {d}, want "
+                                 f"{n_q} of K5 and 1 of K1")
+        answers.append(labels)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if cuda and launches["tiled_mm"] <= 0:
+        raise AssertionError("int8: K5 never launched")
+    classes = set()
+    for i, labels in enumerate(answers):
+        if (tuple(labels.shape) != (1,) + tuple(hw)
+                or labels.dtype != torch.uint8 or int(labels.max()) >= 19):
+            raise AssertionError(f"int8 request {i}: bad labels")
+        classes |= set(torch.unique(labels).tolist())
+    if len(classes) < 2:
+        raise AssertionError("int8: the labels do not vary")
+
+    # -- the bf16 deploy on the same frames, then both timed in turns
+    bfn, bdev = make_inference_fn(graph, pparams, pstate,
+                                  dtype=torch.bfloat16, output="argmax",
+                                  device=device)
+    with autotuned() if cuda else contextlib.nullcontext():
+        bf16 = [bfn(bdev, x) for x in requests]
+        agree = float(np.mean([float((a == b).float().mean())
+                               for a, b in zip(answers, bf16)]))
+        blocks = 3 if cuda else 1
+        warm = 10 if cuda else 1
+        t_int8 = benchmark(lambda x: fn(bundle, x), requests[0], warmup=warm,
+                           iters=iters, blocks=blocks)
+        t_bf16 = benchmark(lambda x: bfn(bdev, x), requests[0], warmup=warm,
+                           iters=iters, blocks=blocks)
+    profile = (profile_requests(lambda: fn(bundle, requests[1]), n=3,
+                                tag=" int8") if cuda else None)
+    out = {"card": card, "convs_int8": n_q, "convs": n_conv,
+           "calib_images": calib, "setup_s": setup_s,
+           "k5_launches_per_frame": launches["tiled_mm"] / frames,
+           "k1_launches_per_frame": launches["resize_argmax"] / frames,
+           "launches": launches, "accumulators_checked": acc_check,
+           "classes": len(classes), "int8_vs_bf16_agreement": agree,
+           "int8_ms_per_img": t_int8["ms_per_batch"],
+           "int8_ms_blocks": t_int8["ms_blocks"],
+           "bf16_ms_per_img": t_bf16["ms_per_batch"],
+           "bf16_ms_blocks": t_bf16["ms_blocks"],
+           "int8_profile_ms_by_class": (
+               profile["ms_per_request_by_class"] if profile else None),
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"int8": out}))
+    if agree < 0.9:
+        raise AssertionError(f"int8: labels agree with bf16's on {agree}")
+    return out
+
+
+def phase_prune_trace(device="cuda"):
+    """The forward-traced topology (``prune/fx_trace.py``) of the flagship
+    train graph (DeepLabV3-R50, os 8, mg [1, 2, 4], inplanes 128,
+    deepsup) at 512x512 on fake tensors, against the IR trace: no
+    mismatch.  Then prune.sh's command (``--prune-ratio 0.6``) on one
+    snapshot of that model (random weights, seed 0, a seeded EIC) with
+    ``--trace verify`` and with ``--trace ir``: both return 0 and write
+    the same ``pruned.msgpack`` and ``channel_cfg.msgpack``, byte for
+    byte.  Prints one ``{"prune_trace": ...}`` line."""
+    from dcfp_tpu_torch.prune.fx_trace import (topology_mismatches,
+                                               trace_topology_fx)
+    from dcfp_tpu_torch.prune.trace import trace_topology
+    t_phase = time.perf_counter()
+    card = _card_line() if device == "cuda" else "cpu"
+    graph = build_model("deeplabv3", **FLAGSHIP_CFG).graph
+    p, s = init_graph(graph, torch.Generator().manual_seed(0), device="cpu")
+    t0 = time.perf_counter()
+    topo_fx = trace_topology_fx(graph, p, s, (1, 512, 512, 3))
+    fx_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    topo_ir = trace_topology(graph)
+    ir_s = time.perf_counter() - t0
+    bad = topology_mismatches(topo_ir, topo_fx)
+    if bad:
+        raise AssertionError("prune_trace: the forward-traced topology "
+                             f"differs from the IR's: {bad}")
+    rng = np.random.default_rng(5)
+    eic = {bn: np.abs(rng.standard_normal(
+        graph.node(bn).attrs["channels"])).astype(np.float32)
+        for bn in prunable_bn_names(graph)}
+    times, launches, files = {}, {}, {}
+    saved = os.environ.get("DCFP_PLATFORM")
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snapshot.msgpack")
+        score = os.path.join(tmp, "score.msgpack")
+        ckpt.save_pruned(snap, p, s)
+        ckpt.save_eic(score, eic)
+        if device == "cpu":
+            os.environ["DCFP_PLATFORM"] = "cpu"
+        try:
+            for trace in ("verify", "ir"):
+                out = os.path.join(tmp, trace)
+                _run_cli(f"prune:{trace}", CLI_MODEL + [
+                    "--model-path", snap, "--score-path", score,
+                    "--prune-ratio", CLI_PRUNE_RATIO, "--trace", trace,
+                    "--save-path", out], times, launches)
+                files[trace] = {
+                    name: open(os.path.join(out, name), "rb").read()
+                    for name in ("pruned.msgpack", "channel_cfg.msgpack")}
+        finally:
+            if saved is None:
+                os.environ.pop("DCFP_PLATFORM", None)
+            else:
+                os.environ["DCFP_PLATFORM"] = saved
+    if files["verify"] != files["ir"]:
+        raise AssertionError("prune_trace: --trace verify and --trace ir "
+                             "wrote different files")
+    out = {"card": card, "fx_trace_512_s": fx_s, "ir_trace_s": ir_s,
+           "coupling_groups": len(topo_fx.spaces),
+           "bn_links": len(topo_fx.norm_conv), "mismatches": 0,
+           "cli_s": times, "pruned_bytes": len(
+               files["ir"]["pruned.msgpack"]),
+           "artifacts_byte_equal": True,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"prune_trace": out}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2763,7 +3024,10 @@ def loader_scaling(counts=(1, 2, 4, 8), waves=3):
     (1: the prefetch thread; more: fork processes), each timed alone
     over ``waves`` x N items after the first, with OpenCV's default
     thread count and with one thread a process (set before the pool
-    forks).  Prints one ``{"loader_scaling": ...}`` line."""
+    forks).  Decode processes are always forked with OpenCV's threads at
+    0 (``data/loader._start_all``), so the two settings differ only for
+    the prefetch thread (N = 1).  Prints one ``{"loader_scaling": ...}``
+    line."""
     import cv2
     default = cv2.getNumThreads()
     out = {"cpu_count": os.cpu_count(), "cv2_default_threads": default}
@@ -4172,7 +4436,7 @@ def main():
     k2_cases = phase_k2()
     k3_cases = phase_k3()
     phase_forward()
-    launches, serve_check, phases, k4_case = phase_serve()
+    launches, serve_check, phases, k4_case, served = phase_serve()
     # the bf16 cuDNN yardsticks after serving: they make their plans
     # autotuned, as serving does, but the serving run comes first
     k2_time = time_k2()
@@ -4181,6 +4445,9 @@ def main():
     k6_launches, k6_check, k6_time = phase_k6()
     k4_launches, k4_check, k4_time = phase_k4(k4_case)
     del k4_case
+    int8_result = phase_int8(served)
+    del served
+    phase_prune_trace()
     phase_train()
     eval_result = phase_eval()
     data_result = phase_data()
@@ -4210,6 +4477,7 @@ def main():
                  dist_result["eval_k1_launches_per_rank"]),
              launches_on_spatial_path=sum(
                  spatial_result["k1_launches_per_rank"]),
+             launches_on_int8_path=int8_result["launches"]["resize_argmax"],
              **k1_time),
         dict(name="stem_conv3x3_s2", route="cuda",
              source="dcfp_tpu_torch/csrc/stem_conv.cu",
@@ -4239,6 +4507,7 @@ def main():
              source="dcfp_tpu_torch/csrc/int8_mm.cu",
              replaces="tools/exp_int8.py:59",
              launches=k5_launches["tiled_mm"],
+             launches_on_int8_path=int8_result["launches"]["tiled_mm"],
              max_abs_err=max(k5_check.values()),
              check={"cases": k5_check,
                     "rule": "int8 equal to the exact plain product; bf16 "

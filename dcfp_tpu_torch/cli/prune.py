@@ -12,7 +12,9 @@ and round-trips the artifacts (rebuild from channel_cfg, reload pruned
 weights, verify the forward on the card matches the surgically-pruned
 model) — the reference's implicit self-check (prune.py:100-113) made an
 explicit gate.  The files equal the JAX package's for the same inputs.
-``--trace jaxpr|verify`` raises NotImplementedError before any write.
+``--trace jaxpr`` prunes with the topology of the traced forward
+(``prune/fx_trace.py``), ``--trace verify`` checks it against the IR's
+before pruning with the latter.
 
 Example (scripts/cs/prune.sh with the module renamed):
   python -m dcfp_tpu_torch.cli.prune --model deeplabv3 --backbone resnet50 \\
@@ -62,8 +64,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace", type=str, default="ir",
                    choices=("ir", "jaxpr", "verify"),
                    help="channel-topology derivation: declared layer "
-                        "graph (ir); the forward-traced derivation (jaxpr, "
-                        "verify) is not ported yet and raises")
+                        "graph (ir), the aten graph of the traced forward "
+                        "(jaxpr, the JAX package's name for it; the analog "
+                        "of the reference's autograd walk, "
+                        "channel_pruner.py:501-737), or both with an "
+                        "exact-agreement gate (verify)")
     p.add_argument("--export-torch", type=str2bool, default=False,
                    help="also write pruned.pth + channel_cfg.pth in the "
                         "reference's torch formats, consumable by its "
@@ -76,10 +81,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
-    if args.trace != "ir":
-        raise NotImplementedError(
-            f"--trace {args.trace}: the forward-traced topology is not "
-            "ported yet (ROADMAP.md queue 1, item 4); use --trace ir")
     device = platform_device()
     from dcfp_tpu_torch.bridge import params_from_numpy, params_to_numpy
     from dcfp_tpu_torch.cli.common import build_model_from_args

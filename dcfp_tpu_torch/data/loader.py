@@ -15,7 +15,9 @@ Replaces the reference's DataLoader/DistributedSampler machinery
 * host-side decode/augment runs in ``num_workers`` OS processes feeding
   a reorder buffer (the reference's ``workers=4`` DataLoader,
   engine.py:81-93) — workers run numpy and ``cv2`` only and never touch
-  CUDA, so they are safe next to the parent's CUDA context;
+  CUDA, so they are safe next to the parent's CUDA context, and are
+  forked with OpenCV's threads at 0, so none inherits its thread pool
+  (:func:`_start_all`);
   ``num_workers<=1`` degrades to one prefetch thread;
 * batches are deterministic in (seed, epoch, batch_index, rank) — the
   SAME batches come out for any ``num_workers``, and a restarted job
@@ -31,6 +33,7 @@ import multiprocessing as mp
 import os
 import queue
 import signal
+import sys
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
@@ -130,6 +133,31 @@ def _safe_put(res_q, serial, thunk, what: str = "decode worker"):
         except Exception:
             e = RuntimeError(f"{what} failed: {type(e).__name__}: {e}")
         res_q.put((serial, e))
+
+
+def _start_all(procs) -> None:
+    """Start the decode processes with OpenCV's thread count at 0.
+
+    OpenCV's pthreads pool is not fork-safe: a child forked while one of
+    the parent's pool threads still holds the pool's lock (as it may just
+    after a parallel cv2 call, such as ``connectedComponents`` in a
+    resampled crop) waits for it forever in its own first parallel cv2
+    call; the loader's stall check then fails the run after
+    ``DCFP_DECODE_STALL_TIMEOUT``.  With 0 threads at the fork the pool
+    is shut down first and the children run cv2
+    sequentially, each being one of several decode processes; the
+    parent's count comes back after.  Only cv2 imported by the parent
+    matters: a child that imports it builds its own pool."""
+    cv2 = sys.modules.get("cv2")
+    threads = cv2.getNumThreads() if cv2 is not None else None
+    if cv2 is not None:
+        cv2.setNumThreads(0)
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if cv2 is not None:
+            cv2.setNumThreads(threads)
 
 
 def _fork_ctx():
@@ -296,8 +324,7 @@ class TrainLoader:
                         args=(self.dataset, self.seed, self.rank, idx_q,
                               res_q), daemon=True)
             for _ in range(self.num_workers)]
-        for p in self._procs:
-            p.start()
+        _start_all(self._procs)
 
         tickets = self._tickets()
         serial = itertools.count()  # monotone reorder key across epochs
@@ -385,8 +412,7 @@ class EvalLoader:
         procs = [ctx.Process(target=_eval_decode_worker,
                              args=(self.dataset, idx_q, res_q), daemon=True)
                  for _ in range(self.num_workers)]
-        for p in procs:
-            p.start()
+        _start_all(procs)
         total = 0
         # tickets are tiny index lists — enqueue the whole finite split
         # upfront, then one exit sentinel per worker

@@ -9,7 +9,10 @@ argmax (port of ``dcfp_tpu/engine/deploy.py``, main path).
   never written to device memory;
 * optionally take the image as its stride-2 phase planes
   (``input_format="phases"``), whose stem conv runs as the stem conv
-  kernel (K2) and the rest of the graph re-rooted after it.
+  kernel (K2) and the rest of the graph re-rooted after it;
+* optionally rewrite the folded graph as the JAX package does
+  (``split_concat_projection``, ``pad_conv_out_channels``;
+  ``insert_barriers`` is kept and changes nothing at run time).
 
 ``make_split_inference_fn`` keeps the JAX package's body/tail split,
 which is where the kernel sits.  The fixed-shape compile and the
@@ -30,15 +33,16 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dcfp_tpu_torch import bridge
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.graph.apply import graph_apply
-from dcfp_tpu_torch.graph.ir import Graph
+from dcfp_tpu_torch.graph.ir import Graph, Node
 from dcfp_tpu_torch.graph.shapes import infer_shapes
 from dcfp_tpu_torch.parallel import spatial
 from dcfp_tpu_torch.utils.logger import get_logger
@@ -101,6 +105,216 @@ def fold_batchnorm(graph: Graph, params: Dict, state: Dict
 
 
 # ---------------------------------------------------------------------------
+# graph rewrites (the JAX package's, on the port's tensors)
+# ---------------------------------------------------------------------------
+
+_ONE_BY_ONE_PRESERVING = {"relu", "bn", "identity", "dropout", "sigmoid"}
+
+
+def _is_broadcast_resize(graph: Graph, resize_name: str) -> bool:
+    """True when the resize's input is spatially 1x1 (a globalpool chain):
+    bilinear resize of a constant field is a broadcast, so a following
+    1x1 conv commutes through it EXACTLY (same float values)."""
+    cur = graph.node(resize_name).inputs[0]
+    while True:
+        node = graph.node(cur)
+        if node.op == "globalpool":
+            return True
+        if node.op in _ONE_BY_ONE_PRESERVING:
+            cur = node.inputs[0]
+            continue
+        if (node.op == "conv" and node.attrs["kernel"] == 1
+                and node.attrs["stride"] == 1
+                and node.attrs["padding"] == 0):
+            cur = node.inputs[0]
+            continue
+        return False
+
+
+def split_concat_projection(graph: Graph, params: Dict
+                            ) -> Tuple[Graph, Dict]:
+    """Rewrite ``conv1x1(concat(b_1..b_k))`` as ``sum_i conv1x1_i(b_i)``.
+
+    The concatenated tensor (e.g. ASPP's 5-branch stack,
+    reference networks/tools/aspp.py:63-65) is never made: each branch
+    projects straight out of its producer and the partial products sum.
+    A branch that is a *broadcast* resize (ASPP's global-pool branch
+    upsampled back, aspp.py:56-61) commutes its projection through the
+    resize: the 1x1 conv runs on the 1x1 pooled vector and only the
+    projected result broadcasts.
+
+    Exact up to float reassociation (one product -> k partial products);
+    the broadcast commute is value-exact.  Deploy-time only: run after
+    :func:`fold_batchnorm` (concat inputs then feed convs directly).  The
+    graph and the params (OIHW kernels sliced on I) are the JAX
+    package's rewrite; it is off by default there and here."""
+    g = graph.copy()
+    new_params = {k: dict(v) for k, v in params.items()}
+    rewrites = []
+    for conv in graph.conv_nodes():
+        a = conv.attrs
+        if not (a["kernel"] == 1 and a["stride"] == 1
+                and a["padding"] == 0 and a.get("groups", 1) == 1):
+            continue
+        src = graph.node(conv.inputs[0])
+        if src.op != "concat":
+            continue
+        rewrites.append((conv, src,
+                         len(graph.consumers(src.name)) == 1))
+    if not rewrites:
+        return g, new_params
+
+    drop = {src.name for _, src, sole in rewrites if sole}
+    split_of = {conv.name: (conv, src) for conv, src, _ in rewrites}
+    new_nodes: Dict[str, Node] = {}
+    for n in g.nodes.values():
+        if n.name in drop:
+            continue
+        if n.name not in split_of:
+            new_nodes[n.name] = n
+            continue
+        conv, src = split_of[n.name]
+        kernel = new_params[conv.name]["kernel"]  # OIHW
+        bias = new_params[conv.name]["bias"] if conv.attrs["bias"] else None
+        del new_params[conv.name]
+        off = 0
+        part_names = []
+        for i, branch in enumerate(src.inputs):
+            bch = _branch_channels(graph, branch)
+            pname = f"{conv.name}.s{i}"
+            p = {"kernel": kernel[:, off:off + bch].clone()}
+            has_bias = bias is not None and i == 0
+            if has_bias:
+                p["bias"] = bias.clone()
+            attrs = dict(conv.attrs)
+            attrs.update(in_ch=bch, bias=has_bias)
+            bnode = graph.node(branch)
+            if bnode.op == "resize" and _is_broadcast_resize(g, branch):
+                # commute: conv on the pre-resize (1x1) tensor, then the
+                # (broadcast) resize runs on out_ch channels
+                new_nodes[pname] = Node(pname, "conv",
+                                        (bnode.inputs[0],), attrs)
+                rname = pname + ".r"
+                rattrs = dict(bnode.attrs)
+                rinputs = ((pname, rattrs["like"]) if "like" in rattrs
+                           else (pname,))
+                new_nodes[rname] = Node(rname, "resize", rinputs, rattrs)
+                part_names.append(rname)
+            else:
+                new_nodes[pname] = Node(pname, "conv", (branch,), attrs)
+                part_names.append(pname)
+            new_params[pname] = p
+            off += bch
+        new_nodes[conv.name] = Node(conv.name, "add", tuple(part_names))
+    g.nodes = new_nodes
+    # drop nodes orphaned by the rewrite (e.g. the pre-commute resize,
+    # whose only consumer was the dropped concat)
+    used = set(g.outputs) | set(g.inputs)
+    for n in reversed(list(g.nodes.values())):
+        if n.name in used:
+            used.update(n.inputs)
+            if n.op == "resize" and "like" in n.attrs:
+                used.add(n.attrs["like"])
+    g.nodes = {k: v for k, v in g.nodes.items() if k in used}
+    return g, new_params
+
+
+def _branch_channels(graph: Graph, name: str) -> int:
+    from dcfp_tpu_torch.utils.flops import _channels
+    return _channels(graph, name)
+
+
+_ZERO_PRESERVING = {"relu", "identity", "maxpool", "dropout"}
+
+
+def insert_barriers(graph: Graph, after: Sequence[str]) -> Graph:
+    """Splice a ``barrier`` node after each named node (the JAX package's
+    rewrite, whose barrier stops XLA from fusing the producer chain into
+    every consumer).  The port's interpreter runs ``barrier`` as the
+    identity (``graph/apply.py``), so at run time this rewrite is a
+    no-op: the graph gains nodes and computes the same values."""
+    g = graph.copy()
+    new_nodes: Dict[str, Node] = {}
+    barred = {name: f"{name}.barrier" for name in after}
+    for n in g.nodes.values():
+        # rewire EVERY consumer of a barred node — including nodes that
+        # are barrier targets themselves (two adjacent barred nodes)
+        if any(i in barred for i in n.inputs):
+            n = n.replace(inputs=tuple(barred.get(i, i)
+                                       for i in n.inputs))
+        new_nodes[n.name] = n
+        if n.name in barred:
+            bname = barred[n.name]
+            new_nodes[bname] = Node(bname, "barrier", (n.name,))
+    g.nodes = new_nodes
+    g.outputs = [barred.get(o, o) for o in g.outputs]
+    return g
+
+
+def pad_conv_out_channels(graph: Graph, params: Dict,
+                          targets: Dict[str, int]
+                          ) -> Tuple[Graph, Dict]:
+    """Zero-pad conv output channels to wider widths — EXACT.
+
+    For each ``conv_name -> width``: the conv's kernel/bias gain zero
+    output channels (so the padded outputs are exactly 0), every consumer
+    conv reached through zero-preserving ops (relu/maxpool/identity)
+    gains zero input channels, and the graph attrs update.  Numerically
+    identical output.  Run AFTER fold_batchnorm."""
+    new_graph = graph.copy()
+    new_params = {k: dict(v) for k, v in params.items()}
+    for name, width in targets.items():
+        node = new_graph.node(name)
+        assert node.op == "conv", name
+        cur = node.attrs["out_ch"]
+        if width <= cur:
+            continue
+        pad = width - cur
+        k = new_params[name]["kernel"]  # OIHW
+        new_params[name]["kernel"] = F.pad(k, (0, 0, 0, 0, 0, 0, 0, pad))
+        if node.attrs["bias"]:
+            new_params[name]["bias"] = F.pad(new_params[name]["bias"],
+                                             (0, pad))
+        node.attrs["out_ch"] = width
+
+        # propagate through zero-preserving ops to the consumer convs
+        frontier = [name]
+        seen = set()
+        while frontier:
+            cur_name = frontier.pop()
+            for cons in new_graph.consumers(cur_name):
+                if cons.name in seen:
+                    continue
+                seen.add(cons.name)
+                if cons.op == "conv":
+                    assert cons.attrs["groups"] == 1, cons.name
+                    new_params[cons.name]["kernel"] = F.pad(
+                        new_params[cons.name]["kernel"],
+                        (0, 0, 0, 0, 0, pad))
+                    cons.attrs["in_ch"] = width
+                elif cons.op in _ZERO_PRESERVING:
+                    frontier.append(cons.name)
+                else:
+                    raise ValueError(
+                        f"cannot pad through {cons.op!r} ({cons.name})")
+    return new_graph, new_params
+
+
+def stem_pad_targets(graph: Graph, width: int = 128) -> Dict[str, int]:
+    """The deep-stem convs narrower than ``width`` (reference stem:
+    networks/backbone/resnet.py:88-98), for
+    :func:`pad_conv_out_channels`."""
+    targets = {}
+    for node in graph.toposorted():
+        if node.op != "conv":
+            continue
+        if node.name.startswith("backbone.conv1.") and \
+                node.attrs["out_ch"] < width:
+            targets[node.name] = width
+    return targets
+
+
+# ---------------------------------------------------------------------------
 # inference function
 # ---------------------------------------------------------------------------
 
@@ -152,7 +366,8 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
                             dtype: torch.dtype = torch.bfloat16,
                             fold_bn: bool = True, output: str = "logits",
                             input_format: str = "nhwc", input_hw=None,
-                            device: DeviceLike = None, spatial_axis=None):
+                            device: DeviceLike = None, spatial_axis=None,
+                            pad_stem: int = 0, split_concat: bool = False):
     """Returns (body_fn, tail_fn, dev_params).
 
     ``body_fn(params, image)`` runs the conv graph on ``image``: NHWC;
@@ -181,6 +396,12 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     the graph on its band of rows and returns the whole output, its
     bands gathered (the low-res logits before the tail, at most 1.3 MB a
     bf16 1025x2049 frame); NHWC or NCHW input only.
+
+    ``split_concat`` applies :func:`split_concat_projection` and
+    ``pad_stem`` (a width, e.g. 128) :func:`pad_conv_out_channels` to the
+    deep-stem convs (:func:`stem_pad_targets`), after the fold, as the
+    JAX package does; both leave the output as it was up to float
+    reassociation and are off by default.
     """
     if input_format not in ("nhwc", "nchw", "phases"):
         raise ValueError(f"unknown input_format {input_format!r}")
@@ -191,6 +412,11 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     dev = resolve_device(device)
     if fold_bn:
         graph, params, state = fold_batchnorm(graph, params, state)
+    if split_concat:
+        graph, params = split_concat_projection(graph, params)
+    if pad_stem:
+        graph, params = pad_conv_out_channels(
+            graph, params, stem_pad_targets(graph, pad_stem))
     dev_params = _to_device(params, dev, dtype)
     dev_state = _to_device(state, dev, torch.float32)
 
@@ -275,15 +501,17 @@ def make_inference_fn(graph: Graph, params: Dict, state: Dict, *,
                       dtype: torch.dtype = torch.bfloat16,
                       fold_bn: bool = True, output: str = "logits",
                       input_format: str = "nhwc", input_hw=None,
-                      device: DeviceLike = None):
+                      device: DeviceLike = None, pad_stem: int = 0,
+                      split_concat: bool = False):
     """Returns (fn, params) where ``fn(params, image)`` runs the deploy
     forward: body then, for ``output='argmax'``, the fused tail.
     ``output``: 'logits' (float32 NHWC) or 'argmax' (uint8 (N, H, W)).
-    ``input_format`` and ``input_hw`` as for
-    :func:`make_split_inference_fn`."""
+    ``input_format``, ``input_hw``, ``pad_stem`` and ``split_concat`` as
+    for :func:`make_split_inference_fn`."""
     body_fn, tail_fn, dev_params = make_split_inference_fn(
         graph, params, state, dtype=dtype, fold_bn=fold_bn, output=output,
-        input_format=input_format, input_hw=input_hw, device=device)
+        input_format=input_format, input_hw=input_hw, device=device,
+        pad_stem=pad_stem, split_concat=split_concat)
     if tail_fn is None:
         return body_fn, dev_params
 

@@ -38,23 +38,41 @@ def prune_to_flops(train_graph: Graph, deploy_graph: Graph, params, state,
     ``params``/``state`` are numpy in HWIO layout
     (``dcfp_tpu_torch.bridge.params_to_numpy``).
 
-    ``trace`` selects the topology derivation.  Only ``"ir"`` (declared
-    layer graph) is ported; ``"jaxpr"`` and ``"verify"`` need the second,
-    forward-traced derivation and raise until it is ported.
+    ``trace`` selects the topology derivation: ``"ir"`` (declared layer
+    graph), ``"jaxpr"`` (the forward-traced derivation,
+    :mod:`dcfp_tpu_torch.prune.fx_trace`: the aten graph of the port's
+    eval forward, the analog of the reference's autograd walk,
+    channel_pruner.py:501-737; the name is the JAX package's), or
+    ``"verify"`` (compute both, error on any disagreement, prune with
+    the IR one).  The forward is traced on fake tensors at
+    ``input_hw``.
     """
     base_flops, base_params = count_flops_params(deploy_graph, input_hw)
     log.info("baseline: %s, %.2fM params", flops_to_string(base_flops),
              base_params / 1e6)
 
     from dcfp_tpu_torch.prune.trace import trace_topology
-    if trace in ("jaxpr", "verify"):
-        raise NotImplementedError(
-            f"trace={trace!r}: the forward-traced topology is not ported yet")
-    if trace != "ir":
+    if trace not in ("ir", "jaxpr", "verify"):
         raise ValueError("trace must be ir|jaxpr|verify, got %r" % trace)
     # the topology is a function of the architecture only — hoist it out
     # of the global_percent sweep
-    topo = trace_topology(train_graph)
+    topo = trace_topology(train_graph) if trace != "jaxpr" else None
+    if trace in ("jaxpr", "verify"):
+        from dcfp_tpu_torch.prune.fx_trace import (topology_mismatches,
+                                                   trace_topology_fx)
+        topo_fx = trace_topology_fx(
+            train_graph, params, state,
+            input_shape=(1, input_hw[0], input_hw[1], 3))
+        if trace == "verify":
+            bad = topology_mismatches(topo, topo_fx)
+            if bad:
+                raise RuntimeError(
+                    "IR and forward-traced topology derivations "
+                    "disagree:\n  " + "\n  ".join(bad))
+            log.info("trace=verify: IR and forward-traced topologies "
+                     "agree (%d coupling groups)", len(topo.spaces))
+        else:
+            topo = topo_fx
 
     gp = start_percent
     while gp <= max_percent:

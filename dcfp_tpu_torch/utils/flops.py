@@ -10,7 +10,7 @@ here, so pruned/baseline FLOPs *ratios* — which drive the prune search
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 from dcfp_tpu_torch.graph.ir import Graph
 from dcfp_tpu_torch.graph.shapes import infer_shapes
@@ -78,3 +78,22 @@ def flops_to_string(flops: int) -> str:
         return f"{flops / 1e6:.2f} MFLOPs"
     return f"{flops} FLOPs"
 
+
+
+def cost_analysis(fn, *example_args) -> Dict[str, float]:
+    """The floating-point operations of ``fn(*example_args)``, counted by
+    PyTorch (``torch.utils.flop_counter.FlopCounterMode``; the port's
+    counterpart of the JAX package's ``xla_cost_analysis``).  These are
+    PyTorch's counts, not XLA's: 2 per multiply-accumulate of the convs,
+    matmuls and attention it has formulas for, nothing for elementwise
+    ops, and no bytes accessed.  Returns ``{"flops": total}`` and one
+    ``"flops:<op>"`` entry an aten op; ``fn`` runs once, on whatever
+    device its arguments are."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn(*example_args)
+    out = {"flops": float(counter.get_total_flops())}
+    for op, n in counter.get_flop_counts().get("Global", {}).items():
+        out[f"flops:{op}"] = float(n)
+    return out

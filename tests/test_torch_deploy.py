@@ -197,6 +197,14 @@ PRUNE_KW = dict(prune_ratio=0.5, layer_keep=0.02, except_start_keys=(),
                 channel_align=128)
 
 
+def _bench_eic(graph):
+    """The bench's synthetic EIC: |N(0, 1)| a channel, seed 0."""
+    r = np.random.default_rng(0)
+    return {bn: np.abs(r.standard_normal(
+        graph.node(bn).attrs["channels"])).astype(np.float32)
+        for bn in j_prunable(graph)}
+
+
 @pytest.fixture(scope="module")
 def pruned_r101():
     """The bench configuration, pruned by both packages from the same
@@ -204,10 +212,7 @@ def pruned_r101():
     jg = j_build_model("deeplabv3", **R101_CFG).graph
     tg = t_build_model("deeplabv3", **R101_CFG).graph
     params, state = np_params(jg, 4)
-    r = np.random.default_rng(0)
-    eic = {bn: np.abs(r.standard_normal(
-        jg.node(bn).attrs["channels"])).astype(np.float32)
-        for bn in j_prunable(jg)}
+    eic = _bench_eic(jg)
     assert list(eic) == t_prunable(tg)
     jres = j_prune_to_flops(jg, jg, params, state, eic, **PRUNE_KW)
     # the port prunes numpy copies of its own tensors
@@ -235,11 +240,22 @@ def test_prune_to_flops_matches_jax(pruned_r101):
         [(n.name, n.op, n.attrs) for n in tr.graph.toposorted()]
 
 
-def test_prune_trace_options():
-    g = t_build_model("deeplabv3", backbone="resnet50").graph
+def test_prune_trace_options(pruned_r101):
+    """``trace="jaxpr"`` and ``"verify"`` prune the bench configuration to
+    the IR trace's channel_cfg; another name raises."""
+    (_, _, _), (tr, tgp, _) = pruned_r101
+    tg = t_build_model("deeplabv3", **R101_CFG).graph
+    params, state = np_params(tg, 4)
+    eic = _bench_eic(tg)
     for trace in ("jaxpr", "verify"):
-        with pytest.raises(NotImplementedError):
-            t_prune_to_flops(g, g, {}, {}, {}, trace=trace)
+        res, gp, _ = t_prune_to_flops(tg, tg, params, state, eic,
+                                      trace=trace, **PRUNE_KW)
+        assert gp == tgp
+        for name, cfg in tr.channel_cfg.items():
+            for k, v in cfg.items():
+                np.testing.assert_array_equal(res.channel_cfg[name][k], v)
+    with pytest.raises(ValueError, match="ir|jaxpr|verify"):
+        t_prune_to_flops(tg, tg, params, state, eic, trace="autograd")
 
 
 def test_pruned_r101_inference(pruned_r101, rng):

@@ -216,6 +216,71 @@ def test_mask_to_boundary_device_matches_jax(ratio):
             got[0], jedge.mask_to_boundary(masks[0].copy(), C, ratio))
 
 
+# The JAX CLI's labels of the first val frame in tests/test_torch_cli.py's
+# boundary case when it evaluated at os 32 (72 x 96, raster order, class x
+# run length).  The port's labels differ at FLIP_PIXEL alone: 7 there (as
+# the port's f64 forward and the JAX CLI on the image x (1 + 2^-22) give),
+# 13 in the JAX CLI's f32 run, from logits 4634.663 against 4634.665.
+FLIP_PRED = """
+    7x32 6x64 7x33 6x63 7x33 6x63 7x34 6x62 7x34 6x62 7x35 6x58 13x3
+    7x35 6x53 13x8 7x35 6x49 13x12 7x36 6x44 13x16 7x36 6x41 13x19
+    7x37 6x37 13x22 7x37 6x34 13x25 7x37 13x1 6x30 13x28 7x38 13x11
+    6x17 13x30 7x38 13x58 7x38 13x58 7x38 13x58 7x38 13x58 7x38 13x58
+    7x38 13x58 7x39 13x57 7x39 13x57 7x39 13x57 7x39 13x57 7x39 13x57
+    7x39 13x57 7x39 13x57 7x39 13x57 7x40 13x56 7x40 13x56 7x40 13x56
+    7x40 13x56 7x40 13x56 7x40 13x56 7x40 13x56 7x40 13x56 7x40 13x56
+    7x41 13x55 7x42 13x54 7x43 13x53 7x44 13x52 7x45 13x51 7x46 13x50
+    7x47 13x49 7x48 13x48 7x49 13x47 7x50 13x46 7x51 13x45 7x52 13x44
+    7x53 13x43 7x54 13x42 7x55 13x41 7x56 13x40 7x56 13x40 7x57 13x39
+    7x58 13x38 7x59 13x37 7x60 13x36 7x61 13x35 7x62 13x34 7x63 13x33
+    7x63 13x33 7x64 13x32 7x65 13x31 7x66 13x30 7x66 13x30 7x67 13x29
+    7x68 13x28 7x68 13x28 7x69 13x27 7x69 10x1 13x26 7x67 10x6 13x23
+"""
+FLIP_PIXEL = (65, 66)
+
+
+def _decode_runs(text, shape):
+    vals, lens = zip(*(map(int, t.split("x")) for t in text.split()))
+    return np.repeat(vals, lens).reshape(shape).astype(np.int64)
+
+
+def test_boundary_of_one_pixel_flip_matches_jax(tmp_path):
+    """The boundary-IoU inputs on which the two CLIs' results differed at
+    os 32: the port's device and host boundary transforms equal the JAX
+    package's on the gt and on both packages' labels, and so do the
+    confusions; the results differ only through the flipped label pixel
+    (3 boundary pixels), not in the boundary transform."""
+    from dcfp_tpu_torch.data.datasets import build_dataset
+    from dcfp_tpu_torch.data.synthetic import make_cityscapes_fixture
+    lst = make_cityscapes_fixture(str(tmp_path), n_images=2, hw=(72, 96),
+                                  split="val", seed=1)
+    gt = np.asarray(build_dataset("CS", str(tmp_path), lst,
+                                  split="val")[0]["label"], np.int64)
+    jpred = _decode_runs(FLIP_PRED, gt.shape)
+    tpred = jpred.copy()
+    assert tpred[FLIP_PIXEL] == 13
+    tpred[FLIP_PIXEL] = 7
+    bounds = []
+    for pred in (jpred, tpred):
+        masks = np.stack([pred, gt])
+        got = tedge.mask_to_boundary_device(masks, 19, 0.02, 255,
+                                            device="cpu")
+        np.testing.assert_array_equal(
+            got, jedge.mask_to_boundary_device(masks, 19, 0.02, 255))
+        for m, b in zip(masks, got):
+            np.testing.assert_array_equal(
+                tedge.mask_to_boundary(m.copy(), 19, 0.02, 255), b)
+            np.testing.assert_array_equal(
+                jedge.mask_to_boundary(m.copy(), 19, 0.02, 255), b)
+        b = got.astype(np.int64)
+        np.testing.assert_array_equal(
+            tev.confusion_matrix(b[1:], b[:1], 19),
+            jev.confusion_matrix(b[1:], b[:1], 19))
+        bounds.append(b)
+    np.testing.assert_array_equal(bounds[0][1], bounds[1][1])
+    assert int((bounds[0][0] != bounds[1][0]).sum()) == 3
+
+
 def test_onehot_helpers_match_jax():
     r = np.random.default_rng(5)
     mask = r.integers(0, C, (9, 11))

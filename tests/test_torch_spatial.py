@@ -58,7 +58,7 @@ W = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(W)
 
 from test_torch_parallel import (  # noqa: E402
-    _close, _close_trees, _start, _tree, _wait)
+    _start, _tree, _wait)
 
 GROUPS = (2, 4)  # worlds: 1 x 2 and 2 x 2
 BP = '{"os": 32, "mg_unit": [1, 1, 1], "inplanes": 64}'
@@ -244,10 +244,12 @@ def test_graph_forward_matches_jax(runs):
 # (c) one train step per loss against the JAX package's on the global batch
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _references(name):
-    """The JAX package's step on the global batch (numpy trees and its
-    metrics) and the port's one-process EIC, once a loss."""
+SELF_NOISE_SCALES = (1 + 2.0 ** -22, 1 - 2.0 ** -22)
+
+
+def _jax_step(name, scale=1.0):
+    """The JAX package's step on the global batch, its image x ``scale``:
+    numpy trees, loss and grad norm."""
     jm = W.aspp_model(JBuilder, JSegModel)
     p0, s0 = W.P.np_params(jm.graph)
     tx = joptim.build_optimizer(**W.OPT)
@@ -256,11 +258,42 @@ def _references(name):
                                      prune_type="dcfp")
     step = jtrainer.make_train_step(jm, jcrit.build_criterions(
         **W.LOSSES[name]), tx)
-    js, m = step(js, jax.tree.map(jnp.asarray, W.train_batch()),
-                 jax.random.key(1))
+    batch = W.train_batch()
+    batch["img"] = (batch["img"] * np.float32(scale)).astype(np.float32)
+    js, m = step(js, jax.tree.map(jnp.asarray, batch), jax.random.key(1))
     want = jax.tree.map(np.asarray, {"params": js.params, "bn": js.bn_state,
                                      "eic": js.eic})
-    return want, float(m["loss"]), float(m["grad_norm"]), _port_step(name)
+    return want, float(m["loss"]), float(m["grad_norm"])
+
+
+@functools.lru_cache(maxsize=None)
+def _references(name):
+    """The JAX package's step on the global batch, its self-noise (twice
+    the largest move of each tensor, and of the loss and grad norm, when
+    the image is scaled by 1 + 2^-22 or 1 - 2^-22), and the port's
+    one-process EIC, once a loss."""
+    want, loss, gnorm = _jax_step(name)
+    moved = [_jax_step(name, s) for s in SELF_NOISE_SCALES]
+    noise = {part: {n: {k: 2 * max(float(np.abs(np.asarray(o[0][part][n][k],
+                                                            np.float64)
+                                                 - v).max()) for o in moved)
+                        for k, v in d.items()}
+                    for n, d in want[part].items()}
+             for part in ("params", "bn")}
+    noise["loss"] = 2 * max(abs(o[1] - loss) for o in moved)
+    noise["grad_norm"] = 2 * max(abs(o[2] - gnorm) for o in moved)
+    return want, loss, gnorm, noise, _port_step(name)
+
+
+def _close_noise(got, want, noise, what):
+    """tests/test_torch_parallel.py's one-step rule (rtol 1e-5, atol 1e-6
+    x max|want|) plus ``noise``, the reference's own move."""
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    rule = 1e-5 * np.abs(want) + 1e-6 * np.abs(want).max() + noise
+    bad = np.abs(got - want) > rule
+    assert not bad.any(), (what, np.abs(got - want)[bad][:5],
+                           rule[bad][:5])
 
 
 def _port_step(name):
@@ -279,31 +312,47 @@ def _port_step(name):
 @pytest.mark.parametrize("world", GROUPS)
 def test_step_matches_jax_global_batch(runs, world, name):
     """1 x 2 and 2 x 2 ranks, each on its band of its data rank's images,
-    give the JAX package's step on the global batch of 4: loss, grad
-    norm, params and BN running statistics by tests/
-    test_torch_parallel.py's one-step rule; every rank bit-equal.  The
-    EIC, against the JAX package's and against the port's one-process
-    step, within that rule plus twice the one-process step's own
-    distance from JAX: on this head the one-process EIC itself misses
-    the rule against JAX (by up to 1.5x for CE and GSRL, 8x for OHEM's
-    few mined pixels, in BNs over 4 to 8 values a channel), a
+    give the JAX package's step on the global batch of 4; every rank
+    bit-equal.
+
+    Loss, grad norm, params and BN running statistics are held by
+    tests/test_torch_parallel.py's one-step rule (rtol 1e-5, atol 1e-6 x
+    max|want|) plus the reference's own noise: twice the largest move of
+    each tensor (and of the loss and the grad norm) when the JAX step's
+    image is scaled by 1 +/- 2^-22.  Measured on the CPU: that floor is
+    2.2e-5 (CE), 4.4e-6 (OHEM) and 2.3e-5 (GSRL) of the grad norm and up
+    to 1.1e-5 x max|update| of a param (OHEM), while the ranks miss JAX
+    by 1.1e-5 to 1.3e-5 of the grad norm and by up to 3.4x the bare rule
+    on 5 of 216 elements of a kernel (OHEM), which the rule plus the
+    floor holds with a margin of ~4x: summation-order noise from the
+    band split.  The EIC, against the JAX package's and against the
+    port's one-process step, within the rule plus twice the one-process
+    step's own distance from JAX: on this head the one-process EIC itself
+    misses the rule against JAX (by up to 1.5x for CE and GSRL, 8x for
+    OHEM's few mined pixels, in BNs over 4 to 8 values a channel), a
     summation-order noise that no sharding removes."""
-    want, loss, gnorm, one = _references(name)
+    want, loss, gnorm, noise, one = _references(name)
     keys = sorted(want["eic"])
     jeic = np.concatenate([want["eic"][k] for k in keys])
     one = np.concatenate([one[k] for k in keys])
     ranks = runs[world]
     for npz in ranks:
         pre = f"step/{name}"
-        _close(npz[f"{pre}/loss"], loss, "loss")
-        _close(npz[f"{pre}/grad_norm"], gnorm, "grad norm")
-        _close_trees(_tree(npz, f"{pre}/params"), want["params"], "params")
-        _close_trees(_tree(npz, f"{pre}/bn"), want["bn"], "bn")
+        _close_noise(npz[f"{pre}/loss"], loss, noise["loss"], "loss")
+        _close_noise(npz[f"{pre}/grad_norm"], gnorm, noise["grad_norm"],
+                     "grad norm")
+        for part in ("params", "bn"):
+            got = _tree(npz, f"{pre}/{part}")
+            assert got.keys() == want[part].keys(), part
+            for n, d in want[part].items():
+                for k, v in d.items():
+                    _close_noise(got[n][k], v, noise[part][n][k],
+                                 f"{part} {n}/{k}")
         eic = np.concatenate([npz[f"{pre}/eic/{k}"] for k in keys])
-        noise = 2 * np.abs(one - jeic)
+        eic_noise = 2 * np.abs(one - jeic)
         for want_eic in (jeic, one):
             rule = 1e-5 * np.abs(want_eic) + 1e-6 * np.abs(want_eic).max()
-            assert (np.abs(eic - want_eic) <= rule + noise).all()
+            assert (np.abs(eic - want_eic) <= rule + eic_noise).all()
     for k in ranks[0]:
         if k.startswith(f"step/{name}/"):
             for npz in ranks[1:]:
