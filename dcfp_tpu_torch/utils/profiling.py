@@ -8,12 +8,15 @@
 * ``trace(dir)`` — context manager around ``torch.profiler`` writing a
   Chrome trace, ``dir/trace.json``.
 * ``flops_efficiency`` — achieved FLOP/s against an analytic FLOP count.
+* ``card_name_and_power()`` — the first card's name and power limit, as
+  ``nvidia-smi`` gives them; a time is written down beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from typing import Any, Callable, Dict
 
@@ -71,3 +74,11 @@ def flops_efficiency(analytic_flops: float, seconds: float,
     dense bf16 tensor-core rate at its 700 W limit)."""
     achieved = analytic_flops / seconds / 1e12
     return {"tflops": achieved, "fraction_of_peak": achieved / peak_tflops}
+
+
+def card_name_and_power() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

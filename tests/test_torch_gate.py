@@ -87,6 +87,7 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from dcfp_tpu_torch.losses.criteria import build_criterions
     from dcfp_tpu_torch.models import convert
     from dcfp_tpu_torch.models.heads import SegModel
+    from dcfp_tpu_torch.prune import horizon
     from dcfp_tpu_torch.utils import checkpoint as ckpt
     from dcfp_tpu_torch.utils.edge import mask_to_boundary_device
 
@@ -159,6 +160,15 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         opt_state_from_state_dict(sd)
     assert opt_state_from_state_dict(sd, device="cpu")["count"] == 1
+    # the EIC horizon's runs
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horizon.run_with_snapshots(model, params, state, [batch], 1, [1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horizon.card_horizon(1, 5, 2)
+    run = horizon.run_with_snapshots(model, params, state, [batch], 1, [1],
+                                     device="cpu")
+    assert list(run.eic) == [1] and len(run.losses) == 1
+
     tsd = convert.to_torch_state_dict(params, state)
     pth = str(tmp_path / "m.pth")
     torch.save(tsd, pth)
@@ -173,12 +183,14 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
 def test_entry_point_scripts_default_to_cuda(monkeypatch, tmp_path):
     """The CLIs' ``main`` and ``bench_torch.main`` run on the card unless
-    ``DCFP_PLATFORM=cpu``: with CUDA absent they raise before writing
-    anything.  (``cli.label_index`` does host work only.)"""
+    ``DCFP_PLATFORM=cpu``, and the EIC horizon's ``main`` always: with
+    CUDA absent they raise before writing anything.  (``cli.label_index``
+    does host work only.)"""
     import importlib.util
 
     from dcfp_tpu_torch.cli import (deploy, evaluate, evaluate_test, prune,
                                     train)
+    from dcfp_tpu_torch.prune import horizon
 
     monkeypatch.delenv("DCFP_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -197,6 +209,7 @@ def test_entry_point_scripts_default_to_cuda(monkeypatch, tmp_path):
         (evaluate_test.main, ["--restore-from", missing,
                               "--output-dir", str(out)]),
         (deploy.main, ["--save-dir", str(out)]),
+        (horizon.main, ["--steps", "2", "--out", str(out)]),
         (lambda argv: bench.main(), [])]
     for fn, argv in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
