@@ -9,7 +9,8 @@ exits non-zero without them.  Phases, each of which raises on failure:
 2. build: compile every kernel of the port from ``dcfp_tpu_torch/csrc/``
    with nvcc, one process per source, in parallel: resize-argmax (K1),
    the stem conv (K2), the fused bottleneck (K3), the fused ASPP
-   branches (K4), the tiled matmul (K5) and the int8 chain (K6);
+   branches (K4), the tiled matmul (K5), the int8 chain (K6) and the
+   conv epilogue;
 3. each kernel against its plain PyTorch version on the card: K1 over
    the deploy shape, the JAX package's kernel test cases and shapes off
    its tiles and channel chunks (``K1_ODD``), timed in a CUDA graph and
@@ -29,6 +30,13 @@ exits non-zero without them.  Phases, each of which raises on failure:
    4 requests from NCHW images and the same 4 from their phase planes
    (stem conv through K2), checks K1 (and K2) ran once per request, and
    times both paths and the unpruned model with the ``totrt.py`` protocol;
+5b. the conv epilogue (``phase_epilogue``) on the serving cell's pruned
+   R101 body: every launch shape against the plain version (bf16 within
+   1 ulp) and the scalar path (19 channels, operands off 16 bytes, f16,
+   f32); a frame's 115 launches timed beside their bound, the plain
+   version and the aten passes they replace; 115 launches a captured
+   request and no aten add or clamp kernel in its profile; the deploy
+   artifact exported with the operator in it and reloaded;
 6. the probes, after serving (every bf16 cuDNN yardstick autotuned):
    K3 at the pruned layer3/layer4 shapes; the int8 probe's stage A (K5 at
    1024^3, a ragged M and a skinny M, int8 exact and bf16 within
@@ -79,8 +87,8 @@ exits non-zero without them.  Phases, each of which raises on failure:
    turn, through ``engine/evaluator.py``: (a) the deploy eval (bf16,
    whole, ss, padded to 1025x2049) in the protocol loop, the pipelined
    loop and the pipelined loop on compact uint8 items, 261 images each
-   (256 timed), with identical confusion matrices, K1 launched once an
-   image a loop and no synchronizing call in a pipelined loop but its
+   (256 timed), with identical confusion matrices, K1 and the body's
+   conv epilogues launched once an image a loop and no synchronizing call in a pipelined loop but its
    flushes; their pinned host memory, and a host (cProfile) and device
    profile of each pipelined loop; (b) multi-scale 0.5-1.75 + flip,
    f32 (4 timed images); (c) sliding 769x769 tiles, f32 (16 timed);
@@ -101,7 +109,8 @@ exits non-zero without them.  Phases, each of which raises on failure:
    the step-6 snapshot over a val manifest of 64 lines, pipelined, on
    f32 and compact items from the prefetch thread and from decode
    processes, each confusion identical to the protocol loop's over the
-   images decoded once into memory, K1 once an image; the loaders' rates
+   images decoded once into memory, K1 and the conv epilogues once an
+   image; the loaders' rates
    alone; one ``{"data": ...}`` JSON line;
 13. the entry points (``phase_cli``): the Cityscapes scripts' commands
     through the CLIs' ``main`` on a 1024x2048 fixture of 8 train and 8
@@ -167,7 +176,11 @@ from dcfp_tpu_torch.data.label_index import build_label_index
 from dcfp_tpu_torch.data.loader import (EvalLoader, TrainLoader, _fork_ctx,
                                         collate)
 from dcfp_tpu_torch.data.synthetic import make_cityscapes_fixture
-from dcfp_tpu_torch.engine.deploy import (benchmark, fold_batchnorm,
+from dcfp_tpu_torch.engine.deploy import (aot_compile_split, benchmark,
+                                          export_serialized_split,
+                                          fold_batchnorm,
+                                          fuse_conv_epilogues,
+                                          load_serialized,
                                           make_inference_fn,
                                           make_split_inference_fn,
                                           split_pred_tail)
@@ -176,6 +189,7 @@ from dcfp_tpu_torch.engine.optim import build_optimizer
 from dcfp_tpu_torch.engine.trainer import (TrainLoop, create_train_state,
                                            make_train_step)
 from dcfp_tpu_torch.graph.apply import graph_apply, init_graph
+from dcfp_tpu_torch.graph.shapes import infer_shapes
 from dcfp_tpu_torch.losses.criteria import build_criterions
 from dcfp_tpu_torch.models.registry import build_model
 from dcfp_tpu_torch.ops import aspp, bottleneck, int8, kernels
@@ -1602,6 +1616,322 @@ def phase_serve_phases(graph, pparams, pstate, images, nchw_answers):
 
 
 # ---------------------------------------------------------------------------
+# 5b. the conv epilogue (bias, residual add, ReLU) of the served body
+# ---------------------------------------------------------------------------
+
+# the serving cell's configuration: its pruned widths are in the file
+EPI_CONFIG = "perfbench/configs/deeplabv3_r101_p50.json"
+EPI_FRAMES = 4
+
+
+def _cl_copy(t, off=0):
+    """A channels_last copy of (N, C, H, W) ``t`` that starts ``off``
+    elements into a fresh buffer, so an odd ``off`` puts its data_ptr()
+    off the 16-byte grain."""
+    n, c, h, w = t.shape
+    buf = torch.empty(n * h * w * c + off, dtype=t.dtype, device=t.device)
+    return buf[off:].view(n, h, w, c).permute(0, 3, 1, 2).copy_(t)
+
+
+def epilogue_model(seed=0, device="cuda"):
+    """The serving cell's pruned DeepLabV3-R101 (widths from
+    ``EPI_CONFIG``) with seeded weights on the card: He-normal kernels,
+    random BN statistics (so that the fold makes real biases), the
+    classifier's bias zero.  Returns (graph, params, state)."""
+    with open(EPI_CONFIG) as f:
+        desc = json.load(f)
+    graph = apply_channel_cfg(build_model(
+        desc["model"], backbone=desc["backbone"],
+        backbone_para=desc["backbone_para"],
+        num_classes=desc["num_classes"], align_corner=desc["align_corner"],
+        deepsup=desc["deepsup"]).graph, desc["channel_cfg"])
+    params, state = init_graph(graph, torch.Generator().manual_seed(seed),
+                               device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for node in graph.toposorted():
+        if node.op == "conv":
+            k = params[node.name]["kernel"]
+            fan_in = k.shape[1] * k.shape[2] * k.shape[3]
+            k.copy_(torch.randn(k.shape, generator=gen, device=device)
+                    * (2.0 / fan_in) ** 0.5)
+        elif node.op == "bn":
+            u = torch.rand((4, node.attrs["channels"]), generator=gen,
+                           device=device)
+            params[node.name] = {"scale": u[0] + 0.5,
+                                 "bias": (u[1] - 0.5) * 0.2}
+            state[node.name] = {"mean": (u[2] - 0.5) * 0.2, "var": u[3] + 0.5}
+    for node in graph.conv_nodes():
+        if node.attrs["bias"]:
+            params[node.name]["bias"].zero_()  # the classifier
+    return graph, params, state
+
+
+def epilogue_sites(graph, params, state, hw=MAIN_OUT):
+    """(conv, (N, C, H, W), residual?, relu?) of every conv epilogue of
+    the served body (``fuse_conv_epilogues`` on the folded graph without
+    its K1 tail) at input ``hw``, batch 1."""
+    folded, _, _ = fold_batchnorm(graph, params, state)
+    body = fuse_conv_epilogues(split_pred_tail(folded)[0])
+    shapes = infer_shapes(body, hw)
+    return [(n.name, (1, n.attrs["out_ch"]) + tuple(shapes[n.name]),
+             len(n.inputs) == 2, n.attrs["epilogue"] == "relu")
+            for n in body.conv_nodes() if "epilogue" in n.attrs]
+
+
+def deploy_eval_launches(graph, params, state, images):
+    """The launches that ``images`` images of batch 1 make on the card on
+    the Predictor's label path (the deploy body, not spatially sharded,
+    and K1): the body's conv epilogues (:func:`epilogue_sites`) and K1,
+    each once an image, and nothing else."""
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["resize_argmax"] = images
+    want["conv_epilogue"] = images * len(epilogue_sites(graph, params,
+                                                        state))
+    return want
+
+
+def _epilogue_case(tag, x, b, r, relu):
+    """One epilogue launch against its plain version on the card: every
+    value within 1 ulp of its type (bf16, f16) or equal (f32).  Returns
+    (values not bit-equal, max|diff|)."""
+    before = kernels.LAUNCHES["conv_epilogue"]
+    got = kernels.conv_epilogue(x, b, r, relu=relu)
+    if kernels.LAUNCHES["conv_epilogue"] != before + x.is_cuda:
+        raise AssertionError(f"{tag}: the epilogue did not launch once")
+    if not got.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"{tag}: the output is not channels_last")
+    ref = kernels.conv_epilogue_plain(x, b, r, relu)
+    g, f = got.float(), ref.float()
+    diff = (g - f).abs()
+    mant = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+    mag = torch.maximum(g.abs(), f.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant[x.dtype])
+    bad = int((diff > ulp).sum()) if x.dtype != torch.float32 else \
+        int((diff > 0).sum())
+    if bad or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{tag}: {bad} values off the plain version")
+    return int((diff > 0).sum()), float(diff.max())
+
+
+def _epilogue_operands(shape, residual, dtype, gen, off=0):
+    """Seeded x, bias and residual (or None), channels_last, ``off``
+    elements into their buffers."""
+    dev = gen.device
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    b = torch.randn(shape[1], generator=gen, device=dev).to(dtype)
+    r = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+         if residual else None)
+    return _cl_copy(x, off), b, None if r is None else _cl_copy(r, off)
+
+
+def _epilogue_frame_ms(sites, gen):
+    """Device ms of one frame's epilogues, all ``sites`` on seeded bf16
+    operands, each way timed in a CUDA graph: the kernel, its plain
+    version, and the aten passes the unrewritten body ran (the conv's
+    in-place bias add, the residual add, ReLU).  With the bytes the
+    kernel must move (x and the residual read once, y written once, the
+    bias) and their bound at the HBM rate."""
+    ops = [(_epilogue_operands(shape, res, torch.bfloat16, gen), relu)
+           for _, shape, res, relu in sites]
+    n_bytes = sum(x.numel() * 2 * (3 if r is not None else 2) + b.numel() * 2
+                  for (x, b, r), _ in ops)
+
+    def kernel():
+        for (x, b, r), relu in ops:
+            kernels.conv_epilogue(x, b, r, relu=relu)
+
+    def plain():
+        for (x, b, r), relu in ops:
+            kernels.conv_epilogue_plain(x, b, r, relu)
+
+    def library():
+        for (x, b, r), relu in ops:
+            y = x.add_(b[:, None, None])
+            if r is not None:
+                y = y + r
+            if relu:
+                y = torch.relu(y)
+
+    before = kernels.LAUNCHES["conv_epilogue"]
+    times = {"kernel_ms": graph_ms(kernel, reps=2, iters=5),
+             "plain_ms": graph_ms(plain, reps=2, iters=5),
+             "library_ms": graph_ms(library, reps=2, iters=5)}
+    kernels.LAUNCHES["conv_epilogue"] = before  # warm-up and capture
+    times.update(bound(n_bytes, 0, BF16_OPS_PER_S))
+    times["achieved_tb_per_s"] = n_bytes / times["kernel_ms"] / 1e9
+    return times
+
+
+def _epilogue_not_channels_last(body, params, image):
+    """Shapes of the epilogues of one eager run of ``body`` whose x or
+    residual is not channels_last, which the CUDA op would copy first."""
+    from dcfp_tpu_torch.graph import apply as apply_mod
+    real, misses = apply_mod.conv_epilogue, []
+
+    def spy(x, bias, residual=None, relu=False):
+        if not all(t.is_contiguous(memory_format=torch.channels_last)
+                   for t in (x,) + (() if residual is None else (residual,))):
+            misses.append(tuple(x.shape))
+        return real(x, bias, residual, relu=relu)
+
+    apply_mod.conv_epilogue = spy
+    try:
+        body(params, image)
+    finally:
+        apply_mod.conv_epilogue = real
+    return misses
+
+
+def _aten_elementwise(kernel_names):
+    """The aten kernels among ``kernel_names`` that add or clamp: the
+    bias add, residual add and ReLU that the epilogue takes over."""
+    return sorted(k for k in kernel_names if "at::native" in k and any(
+        t in k.lower() for t in ("functor_add", "add_kernel", "clamp",
+                                 "relu", "threshold")))
+
+
+def phase_epilogue(device="cuda", hw=MAIN_OUT):
+    """The conv epilogue (``csrc/epilogue.cu``) on the serving cell's
+    body: (a) each launch of a frame's body (its distinct shapes, bf16)
+    against the plain version, within 1 ulp, and the scalar path (the
+    classifier's 19 channels, operands 2 bytes off 16, f16 and f32);
+    (b) one frame's 115 epilogues timed beside their bound, plain and
+    aten times; (c) the captured body + K1 serving 4 requests: 115
+    epilogue launches a request, no aten add or clamp kernel in a
+    profiled request, and the logits' distance from the f32 body beside
+    the unrewritten bf16 body's, every epilogue operand of the eager
+    body channels_last; (d) the deploy artifact exported with
+    the operator in it, reloaded, its labels against the captured
+    ones.  One ``{"epilogue": ...}`` line.  ``device="cpu"`` (with a
+    small ``hw``) rehearses it on the plain versions, untimed."""
+    torch.backends.cudnn.benchmark = True  # deploy: autotune conv algos
+    cuda = device == "cuda"
+    graph, params, state = epilogue_model(device=device)
+    sites = epilogue_sites(graph, params, state, hw)
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {"sites": len(sites), "relu": sum(s[3] for s in sites),
+           "residual": sum(s[2] for s in sites)}
+
+    # (a) every distinct launch of the body, then the scalar path
+    cases = {}
+    for shape, res, relu in sorted(set(s[1:] for s in sites)):
+        x, b, r = _epilogue_operands(shape, res, torch.bfloat16, gen)
+        tag = f"{shape} bf16 residual={res} relu={relu}"
+        cases[tag] = _epilogue_case(tag, x, b, r, relu)
+    big = max((s for s in sites if s[2]), key=lambda s: s[1][1] * s[1][2])
+    # (shape, residual, dtype, element offset): the scalar path (offset
+    # 1, 19 channels), f16 and f32, a batch of 2
+    odd = [(big[1], True, torch.bfloat16, 1),
+           (big[1], False, torch.bfloat16, 1),
+           (big[1], True, torch.float16, 0),
+           (big[1], True, torch.float32, 0),
+           ((1, 19, 129, 257), True, torch.float32, 0),
+           ((2, 24, 33, 65), True, torch.bfloat16, 0)]
+    for shape, res, dtype, off in odd:
+        x, b, r = _epilogue_operands(shape, res, dtype, gen, off)
+        tag = f"{shape} {dtype} residual={res} offset={off}"
+        cases[tag] = _epilogue_case(tag, x, b, r, True)
+    out["cases"] = len(cases)
+    out["values_not_bit_equal"] = sum(v[0] for v in cases.values())
+    out["max_abs_err"] = max(v[1] for v in cases.values())
+    log(f"[epilogue] {len(cases)} cases within 1 ulp of the plain version; "
+        f"values not bit-equal {out['values_not_bit_equal']}")
+
+    # (b) one frame's epilogues, timed
+    if cuda:
+        out["frame"] = _epilogue_frame_ms(sites, gen)
+        torch.cuda.empty_cache()
+        log(f"[epilogue] a frame's {len(sites)} launches: " +
+            json.dumps(out["frame"]))
+
+    # (c) the captured serving path
+    kw = dict(dtype=torch.bfloat16, fold_bn=True, output="argmax",
+              input_format="nchw")
+    body, tail, dev = make_split_inference_fn(graph, params, state,
+                                              device=device, **kw)
+    shape = (1, 3) + tuple(hw)
+    frames = [torch.randn(shape, generator=gen, device=device)
+              for _ in range(EPI_FRAMES)]
+    if cuda:  # the body's layout: the op copies no operand
+        misses = _epilogue_not_channels_last(body, dev, frames[0])
+        if misses:
+            raise AssertionError(f"epilogue operands not channels_last: "
+                                 f"{misses}")
+    served = aot_compile_split(body, tail, dev, shape, input_format="nchw",
+                               device=device)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    answers = [served(dev, f).clone() for f in frames]
+    launches = dict(kernels.LAUNCHES)
+    if launches["conv_epilogue"] != cuda * EPI_FRAMES * len(sites) or \
+            launches["resize_argmax"] != cuda * EPI_FRAMES:
+        raise AssertionError(f"serving launches {launches}")
+    out["launches"] = launches
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            served(dev, frames[0])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        log("[epilogue] a captured request's kernels: " + json.dumps(
+            sorted(((e.key[:90], e.count) for e in events),
+                   key=lambda kv: -kv[1])))
+        aten = _aten_elementwise(e.key for e in events)
+        if aten:
+            raise AssertionError(f"aten add/clamp kernels in the body: "
+                                 f"{aten}")
+        # cuDNN's layout transposes: none once every conv of the body
+        # reads channels_last
+        out["request_layout_transposes"] = sum(
+            e.count for e in events
+            if "nchwToNhwc" in e.key or "nhwcToNchw" in e.key)
+        out["request_epilogue_ms"] = sum(
+            e.self_device_time_total for e in events
+            if "epilogue_elementwise_kernel" in e.key) / 1e3
+    z = body(dev, frames[0]).float()
+    folded, fparams, fstate = fold_batchnorm(graph, params, state)
+    plain_body, pred = split_pred_tail(folded)
+    fdev = {n: {k: v.to(torch.bfloat16) for k, v in d.items()}
+            for n, d in fparams.items()}
+    with torch.inference_mode():
+        feed = {graph.inputs[0]: frames[0].to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)}
+        old = graph_apply(plain_body, fdev, fstate, feed,
+                          channels_first=True)[0][pred.inputs[0]].float()
+        body32, _, dev32 = make_split_inference_fn(
+            graph, params, state, device=device,
+            **dict(kw, dtype=torch.float32))
+        ref = body32(dev32, frames[0]).float()
+    norm = torch.linalg.vector_norm
+    out["logit_rel_l2_vs_f32"] = float(norm(z - ref) / norm(ref))
+    out["unrewritten_logit_rel_l2_vs_f32"] = float(norm(old - ref) /
+                                                   norm(ref))
+    del body32, dev32, old, ref
+
+    # (d) the deploy artifact
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.pt2")
+        export_serialized_split(body, tail, dev, shape, path,
+                                input_format="nchw")
+        with open(path, "rb") as f:
+            program = torch.export.load(f)
+        n_ops = sum(n.op == "call_function" and "conv_epilogue" in
+                    str(n.target) for n in program.graph.nodes)
+        if n_ops != len(sites):
+            raise AssertionError(f"exported body holds {n_ops} epilogues")
+        run = load_serialized(path)
+        agree = [float((run(dev, f) == a).float().mean())
+                 for f, a in zip(frames, answers)]
+    if min(agree) < 0.999:
+        raise AssertionError(f"exported labels agree {agree}")
+    out["exported_epilogues"] = n_ops
+    out["exported_label_agreement"] = agree
+    log(json.dumps({"epilogue": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the int8 deploy (K5 on every conv, K1 tail) and the forward-traced prune
 # ---------------------------------------------------------------------------
 
@@ -2380,7 +2710,8 @@ def eval_deploy(graph, params, state, classic, compact):
     loop on compact items, each over ``EVAL_WARMUP + EVAL_TIMED`` images
     taken in turn from the four, with the launch counts set to 0 before
     and read after.  The three confusion matrices must be identical, K1
-    launched once an image a loop, and each pipelined loop must make no
+    and the body's conv epilogues launched once an image a loop
+    (:func:`deploy_eval_launches`) and nothing else, and each pipelined loop must make no
     synchronizing call but its flushes (at its warmup, every
     ``EVAL_FLUSH`` images and at its end).  Each pipelined loop's pinned
     host memory and resident set are read around it; then both pipelined
@@ -2421,10 +2752,10 @@ def eval_deploy(graph, params, state, classic, compact):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = n * len(loops)
-    if launches["resize_argmax"] != want or sum(launches.values()) != want:
+    want = deploy_eval_launches(graph, params, state, n * len(loops))
+    if launches != want:
         raise AssertionError(f"deploy eval: launches {launches}, expected "
-                             f"K1 {want} times and nothing else")
+                             f"{want}")
     cm = loops["protocol"]["confusion"]
     if cm.sum() != _valid_pixels(list(_Cycle(classic, n))):
         raise AssertionError("deploy eval: confusion does not count every "
@@ -2457,7 +2788,9 @@ def eval_deploy(graph, params, state, classic, compact):
         "meanIU": loops["protocol"]["meanIU"],
         "confusion_identical": True,
         "k1_launches": launches["resize_argmax"],
-        "k1_launches_expected": want,
+        "k1_launches_expected": want["resize_argmax"],
+        "epilogue_launches": launches["conv_epilogue"],
+        "epilogue_launches_expected": want["conv_epilogue"],
         "sync_calls": syncs,
         "flushes_a_pipelined_loop": flushes,
         "host_memory": host_mem,
@@ -3030,8 +3363,8 @@ def data_eval(fx, art, snap, workers, *, device="cuda"):
     images listed 4 times: 5 untimed + 59 timed) on f32 and on compact
     items, each from the prefetch thread (0 workers) and from ``workers``
     decode processes; then the protocol loop over the same images decoded
-    once into memory.  Every confusion must be identical, and K1 launched
-    once an image."""
+    once into memory.  Every confusion must be identical, and K1 and the
+    body's conv epilogues launched once an image and nothing else."""
     cfg = ckpt.load_channel_cfg(art["channel_cfg"])
     graph = apply_channel_cfg(build_model("deeplabv3", **EVAL_CFG).graph,
                               cfg)
@@ -3077,10 +3410,11 @@ def data_eval(fx, art, snap, workers, *, device="cuda"):
                                                                 n))):
         raise AssertionError("eval from disk: confusion does not count "
                              "every labelled pixel")
-    if device != "cpu" and (launches["resize_argmax"] != want
-                            or sum(launches.values()) != want):
+    if device != "cpu" and launches != deploy_eval_launches(graph, p, s,
+                                                            want):
         raise AssertionError(f"eval from disk: launches {launches}, "
-                             f"expected K1 {want} times and nothing else")
+                             f"expected K1 and the conv epilogues once an "
+                             f"image, {want} images, and nothing else")
     alone = {}
     for name, ds in sets.items():
         for w in (0, workers):
@@ -3095,7 +3429,8 @@ def data_eval(fx, art, snap, workers, *, device="cuda"):
                "warmup": EVAL_WARMUP, "loops": loops, "loader_alone": alone,
                "meanIU": mem["meanIU"], "confusion_identical": True,
                "k1_launches": launches["resize_argmax"],
-               "k1_launches_expected": want}
+               "k1_launches_expected": want,
+               "epilogue_launches": launches["conv_epilogue"]}
     log("[data] eval: " + json.dumps(summary))
     return summary
 
@@ -3148,7 +3483,8 @@ def phase_data():
     native augment tail, the loaders' decode processes, every artifact
     written and read back, and the deploy eval's K1.  The launch counts
     are set to 0 before the phase and read after: the training stages
-    launch none of K1-K6, the eval K1 once an image.  Prints one
+    launch none of K1-K6 and no conv epilogue, the eval K1 and the conv
+    epilogues once an image.  Prints one
     ``{"data": ...}`` line."""
     t_phase = time.perf_counter()
     smi = card_name_and_power()
@@ -3425,7 +3761,8 @@ def phase_cli(device="cuda"):
     artifacts, evaluate_test on 2 frames; then ``bench_torch.py`` as a
     child process.  Holds every CLI's rc 0, K1 launched on the evaluate,
     deploy and ``--use-aot`` paths (counted at the captured graphs'
-    replays), the f32 ``--use-aot`` confusion equal to the jit path's,
+    replays), nothing else launched but the deploy bodies' conv
+    epilogues, the f32 ``--use-aot`` confusion equal to the jit path's,
     and the bf16 artifact's and the captured forms' labels against the
     jit path's (``cli_bf16_agreement``, which also holds that the labels
     vary).  Prints one ``{"cli": ...}`` line.  ``device="cpu"``, with
@@ -3583,16 +3920,20 @@ def phase_cli(device="cuda"):
         if k1[name] != CLI_IMAGES:
             raise AssertionError(f"cli {name}: K1 {k1[name]} times for "
                                  f"{CLI_IMAGES} images")
-    others = {k: v for k, v in path_launches.items() if k != "resize_argmax"}
-    if any(others.values()):
-        raise AssertionError(f"the CLI path launched other kernels: "
-                             f"{others}")
+    others = {k: v for k, v in path_launches.items()
+              if k not in ("resize_argmax", "conv_epilogue")}
+    if any(others.values()) or (device != "cpu" and
+                                path_launches["conv_epilogue"] <= 0):
+        raise AssertionError(f"the CLI path launched {path_launches}: "
+                             f"expected K1 and the conv epilogue alone")
     bench, bench_s = cli_bench() if device != "cpu" else (None, None)
     result = {"model": "deeplabv3-resnet50 os8 mg[1,2,4] stem128 19 classes",
               "frames": {"train": CLI_IMAGES, "val": CLI_IMAGES,
                          "test": CLI_TEST_FRAMES, "hw": list(CLI_HW)},
               "seconds": times, "k1_launches": k1,
               "k1_launches_on_cli_path": path_launches["resize_argmax"],
+              "epilogue_launches_on_cli_path":
+                  path_launches["conv_epilogue"],
               "deploy": deploys, "deploy_meta": meta,
               "artifact_bytes": artifact_bytes,
               "aot_f32_confusion_equal": True,
@@ -3790,6 +4131,10 @@ def _dist_rank(rank, port, backend, out_dir, cfg):
                    "eval_other_launches": {
                        k: v for k, v in kernels.LAUNCHES.items()
                        if k != "resize_argmax"},
+                   "eval_epilogues_expected": (deploy_eval_launches(
+                       graph, eparams, estate, len(
+                           classic[rank::DIST_WORLD]))["conv_epilogue"]
+                       if dev.type == "cuda" else 0),
                    "confusion": res["confusion"].astype(np.int64).tolist()},
                   f)
 
@@ -3840,8 +4185,9 @@ def phase_dist(device="cuda", hw=DIST_HW, frames=DIST_FRAMES,
     statistics and EIC bit-equal after the last step; then the bf16
     deploy eval of 8 seeded 1024x2048 frames split over the ranks
     (pipelined, K1 on each rank's label path): the summed confusion
-    equal to one fresh process's over all 8, K1 launched once a frame on each
-    rank, nothing else launched on either path.  Prints one ``{"dist":
+    equal to one fresh process's over all 8, K1 and the body's conv
+    epilogues launched once a frame on each rank, nothing else launched
+    on either path.  Prints one ``{"dist":
     ...}`` line.  ``device="cpu"`` with smaller sizes dry-runs it on the
     CPU (gloo)."""
     t_phase = time.perf_counter()
@@ -3964,9 +4310,16 @@ def phase_dist(device="cuda", hw=DIST_HW, frames=DIST_FRAMES,
         raise AssertionError("dist: the sharded eval's confusion differs")
     if cuda and any(v != f for v, f in zip(k1, result["eval_frames"])):
         raise AssertionError(f"dist: K1 launches {k1}")  # CPU: plain tail
-    if any(any(r["train_launches"].values()) or
-           any(r["eval_other_launches"].values()) for r in ranks):
-        raise AssertionError("dist: a kernel other than K1 was launched")
+    for r in ranks:
+        others = dict(r["eval_other_launches"])
+        if any(r["train_launches"].values()) or others.pop(
+                "conv_epilogue") != r["eval_epilogues_expected"] or \
+                any(others.values()):
+            raise AssertionError(f"dist: rank {r['rank']} launched "
+                                 f"{r['train_launches']} training and "
+                                 f"{r['eval_other_launches']} besides K1 "
+                                 f"in the eval, expected the conv epilogue "
+                                 f"{r['eval_epilogues_expected']} times")
     return result
 
 
@@ -4520,6 +4873,7 @@ def main():
     k3_cases = phase_k3()
     phase_forward()
     launches, serve_check, phases, k4_case, served = phase_serve()
+    epi = phase_epilogue()
     # the bf16 cuDNN yardsticks after serving: they make their plans
     # autotuned, as serving does, but the serving run comes first
     k2_time = time_k2()
@@ -4621,6 +4975,17 @@ def main():
                     "rule": "within 1 bf16 ulp + 1e-5 x sum|x w| of the "
                             "plain f32 result"},
              **k4_time),
+        dict(name="conv_epilogue", route="cuda",
+             source="dcfp_tpu_torch/csrc/epilogue.cu",
+             replaces="none: XLA's fusion of the conv epilogue on the TPU",
+             launches=epi["launches"]["conv_epilogue"],
+             max_abs_err=epi["max_abs_err"],
+             check={"cases": epi["cases"],
+                    "values_not_bit_equal": epi["values_not_bit_equal"],
+                    "rule": "within 1 ulp of the plain version (f32 equal)",
+                    "path": "every launch shape of the served body, the "
+                            "scalar path, a captured request, the export"},
+             **epi["frame"]),
     ]}
     log(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ argmax (port of ``dcfp_tpu/engine/deploy.py``, main path).
 * emit uint8 labels through the fused resize-argmax kernel (K1,
   ``dcfp_tpu_torch.ops.kernels``), so the full-resolution logits are
   never written to device memory;
+* run each conv's bias, and the residual add and ReLU after it, as one
+  pass over the conv's output (``fuse_conv_epilogues``, the conv
+  epilogue kernel), where the body is not spatially sharded;
 * optionally take the image as its stride-2 phase planes
   (``input_format="phases"``), whose stem conv runs as the stem conv
   kernel (K2) and the rest of the graph re-rooted after it;
@@ -314,6 +317,94 @@ def stem_pad_targets(graph: Graph, width: int = 128) -> Dict[str, int]:
     return targets
 
 
+def fuse_conv_epilogues(graph: Graph) -> Graph:
+    """Give every conv with a bias its epilogue: the bias, and the
+    residual add and ReLU that follow the conv, run in one pass over its
+    output (``ops.kernels.conv_epilogue``), as XLA fuses them into the
+    conv on the TPU.
+
+    The conv keeps its name and params and gains ``attrs["epilogue"]``,
+    ``"relu"`` or ``"none"``; a merged add's other operand becomes its
+    second input, the residual.  The merged nodes (the fold's identities,
+    the add, the ReLU) leave the graph and their consumers read the conv.
+    A value is merged into the node that follows only where that node is
+    its one consumer and neither is a graph output.  Of an add's two
+    operands, the conv latest in graph order takes it (the other operand
+    is then computed before it, and a conv it came from keeps its bias
+    alone); an add of more operands is left as it is.
+
+    Exact up to rounding: the epilogue sums in f32 and rounds once, where
+    the unrewritten graph rounds after each op.  Deploy-time only: run
+    after :func:`fold_batchnorm` on a graph that runs without a spatial
+    axis.  Params are unchanged."""
+    order = {name: i for i, name in enumerate(graph.nodes)}
+    outputs = set(graph.outputs)
+    users: Dict[str, list] = {name: [] for name in graph.nodes}
+    for n in graph.nodes.values():
+        for parent in dict.fromkeys(n.inputs):
+            users[parent].append(n.name)
+
+    def sole(name: str, op: str):
+        """The one consumer of ``name`` if it has op ``op`` and neither
+        is a graph output; else None."""
+        u = users[name]
+        if name in outputs or len(u) != 1 or u[0] in outputs:
+            return None
+        node = graph.node(u[0])
+        return node if node.op == op else None
+
+    def through_identities(name: str, merged: list) -> str:
+        while (nxt := sole(name, "identity")) is not None:
+            merged.append(nxt.name)
+            name = nxt.name
+        return name
+
+    merged: Dict[str, list] = {}   # conv -> the nodes it takes, in order
+    end: Dict[str, str] = {}       # a conv's last identity -> the conv
+    for conv in graph.conv_nodes():
+        if conv.attrs["bias"]:
+            names = merged[conv.name] = []
+            end[through_identities(conv.name, names)] = conv.name
+    residual: Dict[str, str] = {}
+    for add in graph.nodes.values():
+        if add.op != "add" or len(set(add.inputs)) != 2:
+            continue
+        convs = [end[i] for i in add.inputs
+                 if i in end and sole(i, "add") is add]
+        if not convs:
+            continue
+        conv = max(convs, key=order.get)
+        other = next(i for i in add.inputs if end.get(i) != conv)
+        if order[other] > order[conv]:
+            continue
+        residual[conv] = other
+        merged[conv].append(add.name)
+    act: Dict[str, str] = {}
+    for conv, names in merged.items():
+        last = through_identities(names[-1] if names else conv, names)
+        relu = sole(last, "relu")
+        if relu is not None:
+            names.append(relu.name)
+        act[conv] = "relu" if relu is not None else "none"
+
+    alias = {m: conv for conv, names in merged.items() for m in names}
+    g = graph.copy()
+    new_nodes: Dict[str, Node] = {}
+    for n in g.nodes.values():
+        if n.name in alias:
+            continue
+        if n.name in act:
+            n.attrs["epilogue"] = act[n.name]
+            if n.name in residual:
+                n.inputs = n.inputs + (residual[n.name],)
+        n.inputs = tuple(alias.get(i, i) for i in n.inputs)
+        if "like" in n.attrs:
+            n.attrs["like"] = alias.get(n.attrs["like"], n.attrs["like"])
+        new_nodes[n.name] = n
+    g.nodes = new_nodes
+    return g
+
+
 # ---------------------------------------------------------------------------
 # inference function
 # ---------------------------------------------------------------------------
@@ -401,7 +492,8 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     ``pad_stem`` (a width, e.g. 128) :func:`pad_conv_out_channels` to the
     deep-stem convs (:func:`stem_pad_targets`), after the fold, as the
     JAX package does; both leave the output as it was up to float
-    reassociation and are off by default.
+    reassociation and are off by default.  Without a spatial axis the
+    body then runs through :func:`fuse_conv_epilogues`.
     """
     if input_format not in ("nhwc", "nchw", "phases"):
         raise ValueError(f"unknown input_format {input_format!r}")
@@ -442,6 +534,8 @@ def make_split_inference_fn(graph: Graph, params: Dict, state: Dict, *,
     tail_resize = None
     if output == "argmax" and "pred" in graph.nodes:
         run_graph, tail_resize = split_pred_tail(run_graph)
+    if spatial_axis is None:
+        run_graph = fuse_conv_epilogues(run_graph)
 
     @torch.inference_mode()
     def body_fn(p, image):

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from dcfp_tpu_torch.device import DeviceLike, resolve_device
 from dcfp_tpu_torch.graph.ir import Graph, Node
 from dcfp_tpu_torch.graph.shapes import infer_shapes
+from dcfp_tpu_torch.ops.kernels import conv_epilogue
 from dcfp_tpu_torch.ops.pool import (_adaptive_matrix, adaptive_avg_pool,
                                      global_avg_pool, max_pool)
 from dcfp_tpu_torch.ops.resize import resize_bilinear_cf
@@ -150,21 +151,31 @@ def _bands(graph: Graph, input_hw: Tuple[int, int],
 # apply
 # ---------------------------------------------------------------------------
 
-def _conv(x, node: Node, p, bands: Optional[_Bands] = None):
+def _conv(x, node: Node, p, bands: Optional[_Bands] = None,
+          residual: Optional[torch.Tensor] = None):
     # A plain dilated conv at every rate: the JAX package rewrites rates
     # >= 18 as nine shifted matmuls only because the TPU's native dilated
     # conv is slow there; the two are equal up to summation order.
+    # A conv with an epilogue (``engine.deploy.fuse_conv_epilogues``) runs
+    # without its bias, then adds it, the residual and the ReLU in one
+    # pass (``ops.kernels.conv_epilogue``).
     a = node.attrs
+    epilogue = a.get("epilogue")
     bias = p["bias"].to(x.dtype) if a["bias"] else None
+    conv_bias = None if epilogue is not None else bias
     rows = bands.rows(node.inputs[0]) if bands is not None else None
     if rows is not None:
-        return spatial.halo_conv2d(
-            x, p["kernel"].to(x.dtype), bias, rows, bands.hw[node.name][0],
-            stride=a["stride"], padding=a["padding"],
+        y = spatial.halo_conv2d(
+            x, p["kernel"].to(x.dtype), conv_bias, rows,
+            bands.hw[node.name][0], stride=a["stride"], padding=a["padding"],
             dilation=a["dilation"], groups=a["groups"])
-    return F.conv2d(x, p["kernel"].to(x.dtype), bias, stride=a["stride"],
-                    padding=a["padding"], dilation=a["dilation"],
-                    groups=a["groups"])
+    else:
+        y = F.conv2d(x, p["kernel"].to(x.dtype), conv_bias,
+                     stride=a["stride"], padding=a["padding"],
+                     dilation=a["dilation"], groups=a["groups"])
+    if epilogue is None:
+        return y
+    return conv_epilogue(y, bias, residual, relu=epilogue == "relu")
 
 
 def _avgpool_band(x, rows: spatial.Rows, w: int, out_size: int):
@@ -296,7 +307,10 @@ def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
     rows = (bands.rows(node.inputs[0]) if bands is not None and node.inputs
             else None)
     if op == "conv":
-        return _conv(vals[node.inputs[0]], node, params[node.name], bands)
+        # a second input is an epilogue's residual
+        residual = vals[node.inputs[1]] if len(node.inputs) > 1 else None
+        return _conv(vals[node.inputs[0]], node, params[node.name], bands,
+                     residual)
     if op == "bn":
         counted = (bands is None or rows is not None
                    or bands.axis.index == 0)
@@ -347,8 +361,15 @@ def _exec_node(node: Node, vals: Dict[str, torch.Tensor], params: Params,
             return spatial.resize_band(x, rows, bands.hw[node.name],
                                        a["align_corners"], bands.axis)
         if "like" in a:
-            target = tuple(vals[a["like"]].shape[-2:])
-        elif a.get("to_input"):
+            like = vals[a["like"]]
+            y = resize_bilinear_cf(x, like.shape[-2:], a["align_corners"])
+            # in the layout of the tensor it is sized to, so that a concat
+            # of the two stays channels_last on the deploy body
+            if (like.is_contiguous(memory_format=torch.channels_last)
+                    and not like.is_contiguous()):
+                y = y.contiguous(memory_format=torch.channels_last)
+            return y
+        if a.get("to_input"):
             target = input_hw
         else:
             target = (int(round(x.shape[-2] * a["scale"])),

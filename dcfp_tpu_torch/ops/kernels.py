@@ -19,6 +19,16 @@ deploy body.  Its bf16 launch (runs of output pixels, the staged
 footprint, the channel groups, the load and store routes) is planned on
 the host by :func:`stem_conv_plan`, cached per shape.
 
+The conv epilogue ``conv_epilogue``: a conv's bias, the residual add
+and the ReLU that follow it, in one pass over the conv's output (source
+``dcfp_tpu_torch/csrc/epilogue.cu``; no Pallas kernel: XLA fuses the
+same work into the conv on the TPU)::
+
+    y[n, c, h, w] = act(x[n, c, h, w] + bias[c] (+ residual[n, c, h, w]))
+
+in f32 with one rounding; the deploy body runs it after every conv with
+a bias (``engine/deploy.py`` ``fuse_conv_epilogues``).
+
 K3 ``fused_bottleneck`` lives in ``dcfp_tpu_torch.ops.bottleneck``, the
 int8 probe's K5 ``tiled_mm`` and K6 ``chain_int8`` in
 ``dcfp_tpu_torch.ops.int8``, and the ASPP probe's K4 ``aspp_fused`` in
@@ -35,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +53,12 @@ import torch
 from dcfp_tpu_torch.ops.resize import _interp_matrix, resize_bilinear
 
 LAUNCHES = {"resize_argmax": 0, "stem_conv3x3_s2": 0, "fused_bottleneck": 0,
-            "tiled_mm": 0, "chain_int8": 0, "aspp_fused": 0}
+            "tiled_mm": 0, "chain_int8": 0, "aspp_fused": 0,
+            "conv_epilogue": 0}
 
 # csrc/<name>.cu of every kernel of the port
 SOURCES = ("resize_argmax", "stem_conv", "bottleneck", "int8_mm",
-           "int8_chain", "aspp")
+           "int8_chain", "aspp", "epilogue")
 
 MAX_CLASSES = 256  # labels are uint8
 
@@ -593,3 +604,99 @@ def stem_conv3x3_s2_prepared(phases: torch.Tensor, km: torch.Tensor,
                 int(bf16), n, cin, cout, hp, wp, ho, wo, km.data_ptr(),
                 b.data_ptr(), int(bool(relu)), out.data_ptr(), *plan)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the conv epilogue: bias, residual add and ReLU in one pass
+# ---------------------------------------------------------------------------
+
+# the C entry's type codes
+EPILOGUE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def conv_epilogue_plain(x: torch.Tensor, bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None,
+                        relu: bool = False) -> torch.Tensor:
+    """:func:`conv_epilogue` in plain PyTorch: ``x + bias[c]``, then
+    ``+ residual``, then ReLU, in f32, with one rounding to x's dtype."""
+    y = x.float() + bias.float()[:, None, None]
+    if residual is not None:
+        y = y + residual.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def conv_epilogue(x: torch.Tensor, bias: torch.Tensor,
+                  residual: Optional[torch.Tensor] = None,
+                  relu: bool = False) -> torch.Tensor:
+    """``act(x + bias[c] (+ residual))`` over a conv's output x (N, C, H,
+    W), in f32 with one rounding to x's dtype (f32, bf16 or f16); bias
+    (C,) and the residual (x's shape) in x's dtype.  The plain version
+    for CPU tensors, which returns x's memory format; for CUDA tensors
+    one launch of ``csrc/epilogue.cu``, which reads and writes
+    channels_last: the deploy body's convs leave their outputs so, and an
+    operand in another layout is first copied to it."""
+    if x.dim() != 4:
+        raise ValueError(f"conv_epilogue: expected (N, C, H, W), got shape "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in EPILOGUE_DTYPES:
+        raise TypeError(f"conv_epilogue: no kernel for {x.dtype}")
+    if tuple(bias.shape) != (x.shape[1],) or bias.dtype != x.dtype:
+        raise ValueError(f"conv_epilogue: bias {tuple(bias.shape)} "
+                         f"{bias.dtype} for x {tuple(x.shape)} {x.dtype}")
+    if residual is not None and (residual.shape != x.shape
+                                 or residual.dtype != x.dtype):
+        raise ValueError(f"conv_epilogue: residual "
+                         f"{tuple(residual.shape)} {residual.dtype} for x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv_epilogue: no kernel for device {x.device}")
+    return torch.ops.dcfp_tpu_torch.conv_epilogue(x, bias, residual,
+                                                  bool(relu))
+
+
+# a registered operator, as K1 is, so that ``torch.export`` records it in
+# the deploy body: the CPU kernel is the plain version, the CUDA kernel
+# the hand-written one
+@torch.library.custom_op("dcfp_tpu_torch::conv_epilogue", mutates_args=(),
+                         device_types=("cpu",))
+def _conv_epilogue_op(x: torch.Tensor, bias: torch.Tensor,
+                      residual: Optional[torch.Tensor],
+                      relu: bool) -> torch.Tensor:
+    return conv_epilogue_plain(x, bias, residual, relu)
+
+
+# csrc/epilogue.cu dcfp_conv_epilogue
+EPILOGUE_ARGTYPES = [_VP, _VP, _VP, _VP, _CL, _CI, _CI, _CI, _VP]
+
+
+@_conv_epilogue_op.register_kernel("cuda")
+def _conv_epilogue_cuda(x, bias, residual, relu):
+    # a copy where the body lost the layout: torch.export (torch 2.11, on
+    # the card) traced the ASPP concat as contiguous, so its program runs
+    # the projection conv, and this epilogue, on NCHW tensors
+    x = x.contiguous(memory_format=torch.channels_last)
+    if residual is not None:
+        residual = residual.contiguous(memory_format=torch.channels_last)
+    if not bias.is_contiguous():
+        raise ValueError("conv_epilogue: the bias must be contiguous")
+    if bias.device != x.device or (residual is not None
+                                   and residual.device != x.device):
+        raise ValueError("conv_epilogue: x, bias and residual must share "
+                         "a device")
+    y = torch.empty_like(x)  # x's strides: the same layout
+    if y.numel() == 0:
+        return y
+    fn = c_entry("epilogue", "dcfp_conv_epilogue", EPILOGUE_ARGTYPES)
+    run_c_entry(fn, x.device, "conv_epilogue", x.data_ptr(),
+                bias.data_ptr(),
+                None if residual is None else residual.data_ptr(),
+                y.data_ptr(), y.numel(), int(x.shape[1]),
+                EPILOGUE_DTYPES[x.dtype], int(relu))
+    return y
+
+
+@_conv_epilogue_op.register_fake
+def _conv_epilogue_fake(x, bias, residual, relu):
+    return torch.empty_like(x)
